@@ -5,7 +5,12 @@ Slice 1, the main path: implicit upwind transport C = I + Σ_d λ_d (I − shift
 on a periodic cartesian grid, solved directly (FFT → divide by Λ → inverse
 FFT, or as dense DFT contractions) and used as the preconditioner inside
 GMRES. The fused 3D circulant solve runs in a hand-written CUDA kernel
-(ops/fused_circulant.py, csrc/fused_circulant.cu). This package imports
+(ops/fused_circulant.py, csrc/fused_circulant.cu).
+
+Slice 2: the wave system on cartesian, hexa and Kershaw grids, stepped
+explicitly or by GMRES with point-block Jacobi or the grid V-cycle
+preconditioner. Its field-major SpMV runs in a hand-written CUDA kernel
+(ops/plane_stencil.py, csrc/plane_stencil.cu). This package imports
 torch, numpy and scipy, never jax; the JAX package is the reference it is
 tested against (tests/test_torch_*.py).
 """
@@ -13,8 +18,14 @@ tested against (tests/test_torch_*.py).
 __version__ = "0.1.0"
 
 from circulantpreconditioner_tpu_torch.utils.device import resolve_device  # noqa: F401
-from circulantpreconditioner_tpu_torch.mesh import Mesh, cartesian_mesh  # noqa: F401
+from circulantpreconditioner_tpu_torch.mesh import (  # noqa: F401
+    Mesh,
+    cartesian_mesh,
+    hex_mesh,
+    kershaw_mesh,
+)
 from circulantpreconditioner_tpu_torch.ops import (  # noqa: F401
+    BSRMatrix,
     CirculantTransportOperator,
     CSRMatrix,
     DenseCirculantSolver,
@@ -22,12 +33,17 @@ from circulantpreconditioner_tpu_torch.ops import (  # noqa: F401
     IdentitySolver,
     MatmulCirculantSolver,
     TransportStencilOperator,
+    VaryingStencilOperator,
+    WaveNormalStencilOperator,
+    WaveStencilOperator,
     make_circulant_solver,
+    make_plane_stencil_matvec,
 )
 from circulantpreconditioner_tpu_torch.solvers import KrylovResult, gmres, make_gmres  # noqa: F401
 from circulantpreconditioner_tpu_torch.models import (  # noqa: F401
     TimeLoopResult,
     TransportEquation,
+    WaveSystem,
     run_time_loop,
     scan_steps,
 )

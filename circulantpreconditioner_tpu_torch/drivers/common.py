@@ -1,11 +1,12 @@
 """Shared CLI plumbing for the port's driver executables (counterpart of
 circulantpreconditioner_tpu/drivers/common.py).
 
-Positional nx [ny [nz]] on the cartesian domain [-0.5, 0.5]^d, as the
-reference drivers. `--device` picks the torch device (default "cuda", which
-raises when no GPU is present). Only cartesian meshes and checkpoint output
-are ported; the other mesh families and the VTK/MED writers raise
-NotImplementedError naming their ROADMAP.md item.
+Positional nx [ny [nz]] on the domain [-0.5, 0.5]^d, as the reference
+drivers, with `--mesh-family cartesian|hexa|kershaw` (hexa and kershaw are
+3D: missing extents repeat the last one). `--device` picks the torch device
+(default "cuda", which raises when no GPU is present). The tetrahedral
+families, mesh files and the VTK/MED writers raise NotImplementedError
+naming their ROADMAP.md item; checkpoints are written.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from circulantpreconditioner_tpu_torch.io import save_checkpoint
 from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh
+from circulantpreconditioner_tpu_torch.mesh.unstructured import hex_mesh, kershaw_mesh
 from circulantpreconditioner_tpu_torch.utils.device import resolve_device
 
 
@@ -30,6 +32,8 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
                    default="cartesian")
     p.add_argument("--msh", help="Gmsh .msh v2.2 file (overrides n / family)")
     p.add_argument("--periodic", action="store_true", help="periodic BCs (cartesian only)")
+    p.add_argument("--kershaw-eps", type=float, default=0.3,
+                   help="Kershaw distortion in (0, 1]; 1 = uniform")
     p.add_argument("--tmax", type=float, default=0.05)
     p.add_argument("--ntmax", type=int, default=2_000_000)
     p.add_argument("--cfl", type=float, default=None)
@@ -54,11 +58,17 @@ def build_mesh(args):
     if args.msh or (args.n and not str(args.n[0]).lstrip("-").isdigit()):
         raise NotImplementedError("mesh files (.msh/.med) are not ported yet: "
                                   "see ROADMAP.md, slice 2, item 12a")
-    if args.mesh_family != "cartesian":
+    n = [int(v) for v in args.n] or [50, 50]  # reference default 50x50 square
+    if args.mesh_family == "cartesian":
+        return cartesian_mesh(((-0.5, 0.5),) * len(n), n, periodic=args.periodic)
+    if args.mesh_family in ("tetra", "kershawtet"):
         raise NotImplementedError(f"--mesh-family {args.mesh_family} is not ported yet: "
                                   "see ROADMAP.md, slice 2, item 12a")
-    n = [int(v) for v in args.n] or [50, 50]  # reference default 50x50 square
-    return cartesian_mesh(((-0.5, 0.5),) * len(n), n, periodic=args.periodic)
+    bounds = ((-0.5, 0.5),) * 3
+    n3 = (n + [n[-1]] * 3)[:3]
+    if args.mesh_family == "hexa":
+        return hex_mesh(bounds, n3)
+    return kershaw_mesh(bounds, n3, eps=args.kershaw_eps)
 
 
 def setup_dtype(args) -> tuple[torch.device, torch.dtype]:
@@ -66,7 +76,10 @@ def setup_dtype(args) -> tuple[torch.device, torch.dtype]:
     return resolve_device(args.device), (torch.float64 if args.f64 else torch.float32)
 
 
-def make_output_cb(args, mesh, prefix="field"):
+def make_output_cb(args, mesh, split=None, prefix="field"):
+    """Per-output callback (it, t, U, extras) on the flat cell-major state U.
+    `split` (U → pressure, velocity) names the fields the VTK/MED writers
+    take; the writers are not ported yet (ROADMAP.md, slice 3, item 23b)."""
     if args.vtk or args.med:
         raise NotImplementedError("--vtk/--med writers are not ported yet: "
                                   "see ROADMAP.md, slice 3, item 23b")

@@ -1,0 +1,111 @@
+"""WaveSystem_SphericalExplosion implicit driver analog (PyTorch port).
+
+Implicit (I + D)Uⁿ⁺¹ = Uⁿ by GMRES, cfl = 1e3/dim, tol 1e-5, maxits 1000.
+Ported preconditioners: none, pbjacobi, and gridmg (the geometric-Galerkin
+grid V-cycle, right-preconditioned, on meshes whose topology is a grid). On
+those meshes the loop runs field-major, and on the GPU its matvec, and the
+V-cycle's fine-level operator, is kernel K2. The default stays ilu0, as in
+the JAX driver; it and the other preconditioners raise NotImplementedError
+naming their ROADMAP.md item.
+
+    python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit --mesh-family kershaw 64 64 64 --pc gridmg
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from circulantpreconditioner_tpu_torch.drivers.common import (
+    base_parser,
+    build_mesh,
+    chunk_of,
+    make_output_cb,
+    setup_dtype,
+)
+from circulantpreconditioner_tpu_torch.models import WaveSystem, run_time_loop
+from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+
+# --pc value → what it needs, and its ROADMAP.md item
+NOT_PORTED = {
+    "ilu0": ("ILU(0)", "17"),
+    "bjacobi": ("block-Jacobi ILU(0)", "17"),
+    "blockfft": ("the block-circulant direct solve", "12b"),
+    "dctfft": ("the DCT/DST direct solve", "16"),
+    "circulant2l": ("the block-circulant projection preconditioner", "20 (and 12b)"),
+    "dct2l": ("the DCT projection preconditioner", "20 (and 16)"),
+    "dct2lm": ("the DCT projection preconditioner", "20 (and 16)"),
+    "aggvcycle": ("AggregationVCyclePC and the clustered-window SpMV", "19 (and 18)"),
+}
+
+
+def main(argv=None):
+    p = base_parser(__doc__)
+    p.add_argument("--pc", choices=["none", "pbjacobi", "ilu0", "bjacobi", "blockfft",
+                                    "dctfft", "circulant2l", "dct2l", "dct2lm",
+                                    "gridmg", "aggvcycle"],
+                   default="ilu0")
+    p.add_argument("--rtol", type=float, default=1e-5)
+    p.add_argument("--atol", type=float, default=1e-5)
+    p.add_argument("--maxits", type=int, default=1000)
+    p.add_argument("--shard", choices=["none", "rows"], default="none",
+                   help="row-sharded GMRES (only 'none' is ported)")
+    args = p.parse_args(argv)
+    if args.pc in NOT_PORTED:
+        what, item = NOT_PORTED[args.pc]
+        raise NotImplementedError(f"--pc {args.pc} needs {what}, not ported yet: "
+                                  f"see ROADMAP.md, slice 2, item {item}")
+    if args.shard != "none":
+        raise NotImplementedError(f"--shard {args.shard} needs the distributed SpMV, "
+                                  "not ported yet: see ROADMAP.md, slice 3, item 24")
+    device, dtype = setup_dtype(args)
+    mesh = build_mesh(args)
+    model = WaveSystem(mesh, cfl=args.cfl or 1e3 / mesh.dim, device=device, dtype=dtype)
+    print(f"-- implicit wave: mesh {mesh.name} ({mesh.n_cells} cells), "
+          f"dt={model.dt:.4g}, pc={args.pc}")
+
+    side = "right" if args.pc == "gridmg" else "left"
+    gmres_kw = dict(rtol=args.rtol, atol=args.atol, maxiter=args.maxits, side=side)
+    if args.pc == "gridmg":
+        if getattr(mesh, "topology_shape", None) is None:
+            raise ValueError("--pc gridmg needs a mesh whose topology is a grid")
+        from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
+
+        pc_obj = GridVCyclePC.from_grid_model(
+            model.divergence, mesh.topology_shape, A0_apply=model.implicit_matvec(),
+            A0_apply_fm=model.implicit_matvec_fm(), shift=1.0, dtype=dtype)
+        M_fm, make_M_cm = pc_obj.apply_fm, lambda: pc_obj.apply
+    elif args.pc == "pbjacobi":
+        M_fm = pcs.pbjacobi_fm(model.divergence, shift=1.0)
+        make_M_cm = lambda: pcs.pbjacobi(model.divergence, shift=1.0)  # noqa: E731
+    else:
+        M_fm, make_M_cm = None, lambda: None
+    # the field-major loop where the mesh has a gather-free stencil form; the
+    # cell-major preconditioner is built only in the fallback
+    step = model.implicit_stepper_fm(M_fm=M_fm, **gmres_kw)
+    fm = step is not None
+    if not fm:
+        step = model.implicit_stepper(M=make_M_cm(), **gmres_kw)
+
+    U0 = model.initial_state()
+    cb = make_output_cb(args, mesh, split=model.split_fields, prefix="wave")
+    on_out = cb
+    if fm:
+        print("-- field-major GMRES loop")
+        U0 = model.pack_fm(U0).reshape(-1)
+        on_out = lambda it, t, U, extras: cb(it, t, model.unpack_fm(U), extras)  # noqa: E731
+    res = run_time_loop(step, U0, model.dt, tmax=args.tmax, ntmax=args.ntmax,
+                        precision=args.precision, output_freq=args.output_freq,
+                        chunk=chunk_of(args), on_output=on_out)
+    if fm:
+        res.state = model.unpack_fm(res.state)
+    pfin, _ = model.split_fields(res.state)
+    its = [d["extras"][0] for d in res.diagnostics if d["extras"]]
+    print(f"\nEnd at it={res.iterations} t={res.time:.6g} stationary={res.stationary}")
+    print(f"pressure range [{pfin.min():.6g}, {pfin.max():.6g}]")
+    if its:
+        print(f"GMRES iterations per step: median {np.median(its):.0f}, max {np.max(its):.0f}")
+    return res
+
+
+if __name__ == "__main__":
+    main()

@@ -3,3 +3,8 @@ from circulantpreconditioner_tpu_torch.mesh.structured import (  # noqa: F401
     cartesian_mesh,
     set_group_at_plane,
 )
+from circulantpreconditioner_tpu_torch.mesh.unstructured import (  # noqa: F401
+    build_mesh_from_cells,
+    hex_mesh,
+    kershaw_mesh,
+)

@@ -1,0 +1,219 @@
+"""Unstructured hexahedral meshes: cell-vertex → face-major conversion and the
+hexa / Kershaw generators.
+
+NumPy copy of the hexahedral part of circulantpreconditioner_tpu/mesh/
+unstructured.py. Faces are extracted by the sorted-vertex-key lexsort only:
+the JAX package's optional g++ helper (native/fvcore.cpp) is a host
+accelerator and is not copied. Face order may therefore differ from the JAX
+package's when that helper is built; every face-derived quantity (areas,
+normals, volumes, the assembled operators) is the same up to that order.
+
+The tetrahedral families, the Gmsh/MED readers and the 2D polygon meshes
+wait for ROADMAP.md, slice 2, item 12a.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from circulantpreconditioner_tpu_torch.mesh.core import INTERIOR, Mesh
+
+# local vertex numbering of the 6 quad faces of a hexahedron with vertices
+# ordered (x fastest): 0:(0,0,0) 1:(1,0,0) 2:(1,1,0) 3:(0,1,0)
+#                      4:(0,0,1) 5:(1,0,1) 6:(1,1,1) 7:(0,1,1)
+_HEX_FACES = [
+    (0, 3, 2, 1),  # z-
+    (4, 5, 6, 7),  # z+
+    (0, 1, 5, 4),  # y-
+    (3, 7, 6, 2),  # y+
+    (0, 4, 7, 3),  # x-
+    (1, 2, 6, 5),  # x+
+]
+
+
+def _polygon_area_normal_center(pts: np.ndarray):
+    """Fan triangulation around the vertex centroid; returns (area, unit
+    normal, area-weighted centroid). Works for planar and mildly non-planar
+    quads (Kershaw)."""
+    c = pts.mean(axis=0)
+    total = np.zeros(3)
+    center = np.zeros(3)
+    k = len(pts)
+    for i in range(k):
+        a, b = pts[i], pts[(i + 1) % k]
+        tri_n = 0.5 * np.cross(a - c, b - c)
+        total += tri_n
+        tri_area = np.linalg.norm(tri_n)
+        center += tri_area * (a + b + c) / 3.0
+    area = np.linalg.norm(total)
+    if area < 1e-300:
+        raise ValueError("degenerate face")
+    return area, total / area, center / max(area, 1e-300)
+
+
+def _extract_faces(cells_arr: np.ndarray):
+    """Shared faces of a homogeneous hex mesh by sorted-vertex-key lexsort:
+    (face_vertices (nF, 4), face_cells (nF, 2) with -1 on the boundary)."""
+    n_cells = len(cells_arr)
+    faces = np.concatenate([cells_arr[:, list(f)] for f in _HEX_FACES], axis=0)
+    owner = np.tile(np.arange(n_cells, dtype=np.int64), len(_HEX_FACES))
+    key = np.sort(faces, axis=1)
+    order = np.lexsort(key.T[::-1])
+    key_s, faces_s, owner_s = key[order], faces[order], owner[order]
+    new = np.ones(len(key_s), dtype=bool)
+    new[1:] = (key_s[1:] != key_s[:-1]).any(axis=1)
+    fid = np.cumsum(new) - 1
+    nF = int(fid[-1]) + 1 if len(fid) else 0
+    fv = np.full((nF, 4), -1, dtype=np.int64)
+    fc = np.full((nF, 2), -1, dtype=np.int64)
+    fv[fid[new]] = faces_s[new]
+    fc[fid[new], 0] = owner_s[new]
+    second = ~new
+    if second.any():
+        if np.bincount(fid, minlength=nF).max() > 2:
+            raise ValueError("broken mesh: face shared by >2 cells")
+        fc[fid[second], 1] = owner_s[second]
+    return fv, fc
+
+
+def _fast_build_homogeneous(points, cells_arr, default_group, name):
+    """Vectorized build of a homogeneous hex mesh. The fan-triangulation
+    area vector Σ ½(aᵢ−c)×(aᵢ₊₁−c) does not depend on the fan point c.
+    Geometry runs on per-component contiguous (nF, 4) arrays: stride-3
+    access over large buffers is far slower on the host."""
+    n_cells = cells_arr.shape[0]
+    fv, fc = _extract_faces(cells_arr)
+    comp = [np.ascontiguousarray(points[:, d]) for d in range(3)]
+    Pc = [cd[fv] for cd in comp]  # 3 × (nF, 4)
+    cc = [p.mean(axis=1) for p in Pc]  # fan point
+    bc = [p[:, [1, 2, 3, 0]] for p in Pc]
+    d1 = [p - m[:, None] for p, m in zip(Pc, cc)]
+    d2 = [p - m[:, None] for p, m in zip(bc, cc)]
+    tri_n = [
+        0.5 * (d1[1] * d2[2] - d1[2] * d2[1]),
+        0.5 * (d1[2] * d2[0] - d1[0] * d2[2]),
+        0.5 * (d1[0] * d2[1] - d1[1] * d2[0]),
+    ]  # 3 × (nF, 4)
+    total = [t.sum(axis=1) for t in tri_n]
+    area = np.sqrt(total[0] ** 2 + total[1] ** 2 + total[2] ** 2)
+    if (area < 1e-300).any():
+        raise ValueError("degenerate face")
+    normal_c = [t / area for t in total]
+    tri_area = np.sqrt(tri_n[0] ** 2 + tri_n[1] ** 2 + tri_n[2] ** 2)  # (nF, 4)
+    tri_w = np.maximum(tri_area.sum(axis=1), 1e-300)
+    center_c = [
+        ((p + b_ + m[:, None]) / 3.0 * tri_area).sum(axis=1) / tri_w
+        for p, b_, m in zip(Pc, bc, cc)
+    ]
+
+    centroid_c = [cd[cells_arr].mean(axis=1) for cd in comp]  # 3 × (nC,)
+    fc0 = fc[:, 0]
+    dot = sum(n_ * (ce - cen[fc0]) for n_, ce, cen in zip(normal_c, center_c, centroid_c))
+    sign = np.where(dot < 0, -1.0, 1.0)
+    normal_c = [n_ * sign for n_ in normal_c]
+
+    # V = (1/3) Σ_f (c_f · n_f) A_f, with the sign of each side's outward normal
+    contrib = area * sum(c_ * n_ for c_, n_ in zip(center_c, normal_c)) / 3.0
+    m2 = fc[:, 1] >= 0
+    cell_volume = (np.bincount(fc0, weights=contrib, minlength=n_cells)
+                   - np.bincount(fc[m2, 1], weights=contrib[m2], minlength=n_cells))
+
+    mesh = Mesh(
+        dim=3,
+        cell_center=np.stack(centroid_c, axis=1),
+        cell_volume=cell_volume,
+        face_cells=fc,
+        face_normal=np.stack(normal_c, axis=1),
+        face_area=area,
+        face_center=np.stack(center_c, axis=1),
+        face_group=np.where(fc[:, 1] < 0, 1, INTERIOR).astype(np.int32),
+        groups={default_group: 1},
+        periodic_twin=None,
+        structured_shape=None,
+        bounds=None,
+        name=name,
+    )
+    mesh.points = points  # type: ignore[attr-defined]
+    mesh.cell_vertices = cells_arr  # type: ignore[attr-defined]  # (nC, 8) int64
+    mesh.face_vertices = fv  # type: ignore[attr-defined]  # (nF, 4) int64
+    return mesh
+
+
+def build_mesh_from_cells(points: np.ndarray, cells, default_group: str = "Wall",
+                          name: str = "unstructured") -> Mesh:
+    """Face-major mesh from hexahedral cells (8 vertex ids each, in the
+    _HEX_FACES numbering). Face areas and normals by fan triangulation,
+    normals outward of the first incident cell, volumes by the divergence
+    theorem — valid for the warped, non-planar Kershaw cells."""
+    points = np.asarray(points, dtype=np.float64)
+    if points.shape[1] == 2:
+        points = np.concatenate([points, np.zeros((len(points), 1))], axis=1)
+    cells_arr = np.asarray(cells, dtype=np.int64)
+    if cells_arr.ndim != 2 or cells_arr.shape[1] != 8 or not len(cells_arr):
+        raise NotImplementedError("only hexahedral cells are ported; tetrahedra and "
+                                  "polyhedra: see ROADMAP.md, slice 2, item 12a")
+    return _fast_build_homogeneous(points, cells_arr, default_group, name)
+
+
+def _hex_grid_points_cells(bounds, n, warp=None):
+    """Vertices of the (nx+1)(ny+1)(nz+1) lattice (x fastest) and the 8
+    vertex ids of each cell, cells numbered x fastest."""
+    nx, ny, nz = (int(v) for v in n)
+    bounds = np.asarray(bounds, dtype=np.float64).reshape(3, 2)
+    xs = [np.linspace(bounds[d, 0], bounds[d, 1], int(n[d]) + 1) for d in range(3)]
+    Z, Y, X = np.meshgrid(xs[2], xs[1], xs[0], indexing="ij")
+    pts = np.stack([X.reshape(-1), Y.reshape(-1), Z.reshape(-1)], axis=1)
+    if warp is not None:
+        pts = warp(pts)
+    k, j, i = np.meshgrid(np.arange(nz), np.arange(ny), np.arange(nx), indexing="ij")
+    i, j, k = i.reshape(-1), j.reshape(-1), k.reshape(-1)
+
+    def vid(i, j, k):
+        return (k * (ny + 1) + j) * (nx + 1) + i
+
+    cells = np.stack([
+        vid(i, j, k), vid(i + 1, j, k), vid(i + 1, j + 1, k), vid(i, j + 1, k),
+        vid(i, j, k + 1), vid(i + 1, j, k + 1), vid(i + 1, j + 1, k + 1), vid(i, j + 1, k + 1),
+    ], axis=1).astype(np.int64)
+    return pts, cells
+
+
+def hex_mesh(bounds, n, name=None) -> Mesh:
+    """Uniform hexahedra as an unstructured mesh (FVCA6 'mesh_hexa' family)."""
+    pts, cells = _hex_grid_points_cells(bounds, n)
+    m = build_mesh_from_cells(pts, cells, name=name or f"hexa_{'x'.join(map(str, n))}")
+    m.topology_shape = tuple(int(v) for v in n)  # type: ignore[attr-defined]
+    return m
+
+
+def _kershaw_warp(bounds, eps: float):
+    bounds = np.asarray(bounds, dtype=np.float64).reshape(3, 2)
+    lo, hi = bounds[:, 0], bounds[:, 1]
+
+    def warp(pts):
+        u = (pts - lo) / (hi - lo)
+        x, y, z = u[:, 0], u[:, 1], u[:, 2]
+        # kinked shear: a triangular wave in x and y scales the z shift.
+        # zn = z + a·sin(2πz)/π has slope 1 + 2a·cos(2πz) ≥ eps > 0, so the
+        # map is monotone in z and cells never fold, at every resolution.
+        tri = lambda t: 1.0 - 2.0 * np.abs(t - np.floor(t + 0.5))
+        amp = 0.5 * (1.0 - eps) * tri(2 * x) * tri(2 * y)
+        zn = z + amp * np.sin(2 * np.pi * z) / np.pi
+        out = u.copy()
+        out[:, 2] = zn
+        return lo + out * (hi - lo)
+
+    return warp
+
+
+def kershaw_mesh(bounds, n, eps: float = 0.3, name=None) -> Mesh:
+    """Kershaw-distorted hexahedra (FVCA6 'Kershaw' family analog): z is
+    sheared by a kinked profile whose amplitude depends on (x, y). eps ∈
+    (0, 1] sets the severity (1 = uniform). The geometry is warped but the
+    topology is the (nx, ny, nz) grid, which `topology_shape` records for
+    the gather-free stencil operators."""
+    warp = _kershaw_warp(bounds, eps)
+    pts, cells = _hex_grid_points_cells(bounds, n, warp=warp)
+    m = build_mesh_from_cells(pts, cells, name=name or f"kershaw_{'x'.join(map(str, n))}")
+    m.topology_shape = tuple(int(v) for v in n)  # type: ignore[attr-defined]
+    return m

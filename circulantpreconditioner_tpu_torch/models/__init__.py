@@ -7,3 +7,9 @@ from circulantpreconditioner_tpu_torch.models.transport import (  # noqa: F401
     TransportEquation,
     spherical_explosion_scalar,
 )
+from circulantpreconditioner_tpu_torch.models.wave import (  # noqa: F401
+    C0,
+    P0,
+    WaveSystem,
+    spherical_explosion_wave,
+)

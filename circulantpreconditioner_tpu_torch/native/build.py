@@ -1,14 +1,16 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) as one shared library.
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
 
-compiles every `circulantpreconditioner_tpu_torch/csrc/*.cu` into
+compiles each `circulantpreconditioner_tpu_torch/csrc/*.cu` into an object,
+one nvcc process per source, all started together; `nvcc -shared` then links
+them into
 `circulantpreconditioner_tpu_torch/build/libcirculant_kernels-<hash>.so`, where
 <hash> is a digest of the sources: the first use after a source change
 rebuilds, later uses load the existing file. The library has a plain C
 interface bound with ctypes (pointers and the stream as c_void_p, ints as
-c_int, each entry returning its cudaError_t), so no PyTorch headers are
-compiled. nvcc is taken from $CUDA_HOME/bin, /usr/local/cuda/bin or PATH; a
+c_int or c_longlong, each entry returning its cudaError_t), so no PyTorch
+headers are compiled. nvcc is taken from $CUDA_HOME/bin, /usr/local/cuda/bin or PATH; a
 failed build raises with nvcc's output. ptxas's register and shared-memory
 report is kept beside the library as <name>.log.
 
@@ -25,22 +27,26 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # entry point → argtypes; restype is c_int (cudaError_t) unless listed below
 _SIGNATURES = {
     "k1_fused_circulant_solve": [_P] * 17 + [_I, _I, _I, _I, _P],
     "k1_error_string": [_I],
+    "k2_plane_stencil": [_P] * 5 + [_L, _I, _I] + [_L] * 6 + [ctypes.c_double, _I, _I, _P],
+    "k2_error_string": [_I],
 }
-_RESTYPES = {"k1_error_string": ctypes.c_char_p}
+_RESTYPES = {"k1_error_string": ctypes.c_char_p, "k2_error_string": ctypes.c_char_p}
 
 
 def _sources() -> list[Path]:
@@ -70,6 +76,14 @@ def _nvcc() -> str:
     return found
 
 
+def _run(cmd: list[str]) -> subprocess.CompletedProcess:
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc
+
+
 def build(force: bool = False) -> tuple[Path, float]:
     """Compile the kernels if the library for the current sources is missing
     (or force=True). Returns (library path, seconds spent compiling)."""
@@ -77,21 +91,19 @@ def build(force: bool = False) -> tuple[Path, float]:
     if lib.is_file() and not force:
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=BUILD_DIR, suffix=".so.tmp")
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _sources())]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                               f"{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]
+        with ThreadPoolExecutor(max_workers=len(objs)) as pool:
+            compiled = list(pool.map(
+                _run, [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(src)]
+                       for src, o in zip(_sources(), objs)]))
+        out = Path(tmp) / "lib.so"
+        _run([nvcc, "-shared", "-o", str(out), *map(str, objs)])
+        os.replace(out, lib)
     seconds = time.perf_counter() - t0
-    lib.with_suffix(".log").write_text(proc.stdout + proc.stderr)
+    lib.with_suffix(".log").write_text("".join(p.stdout + p.stderr for p in compiled))
     return lib, seconds
 
 

@@ -3,7 +3,7 @@ from circulantpreconditioner_tpu_torch.ops.circulant import (  # noqa: F401
     np_eigenvalue_diagonal,
     np_transport_spectrum,
 )
-from circulantpreconditioner_tpu_torch.ops.csr import CSRMatrix  # noqa: F401
+from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix, CSRMatrix  # noqa: F401
 from circulantpreconditioner_tpu_torch.ops.dft_matmul import MatmulCirculantSolver  # noqa: F401
 from circulantpreconditioner_tpu_torch.ops.fused_circulant import (  # noqa: F401
     FusedCirculantSolver,
@@ -14,4 +14,13 @@ from circulantpreconditioner_tpu_torch.ops.spectral_collapse import (  # noqa: F
     IdentitySolver,
     make_circulant_solver,
 )
-from circulantpreconditioner_tpu_torch.ops.stencil import TransportStencilOperator  # noqa: F401
+from circulantpreconditioner_tpu_torch.ops.stencil import (  # noqa: F401
+    TransportStencilOperator,
+    VaryingStencilOperator,
+    WaveNormalStencilOperator,
+    WaveStencilOperator,
+)
+from circulantpreconditioner_tpu_torch.ops.plane_stencil import (  # noqa: F401
+    PlaneStencilMatvec,
+    make_plane_stencil_matvec,
+)

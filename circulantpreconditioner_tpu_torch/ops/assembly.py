@@ -1,6 +1,7 @@
-"""Vectorized finite-volume transport assembly (PyTorch counterpart of the
-transport half of circulantpreconditioner_tpu/ops/assembly.py; the wave and
-diffusion assemblies wait for ROADMAP.md, slice 2, item 12).
+"""Vectorized finite-volume assembly: scalar transport (CSR) and the wave
+system (BSR). PyTorch counterpart of the transport and wave halves of
+circulantpreconditioner_tpu/ops/assembly.py; the diffusion assembly waits for
+ROADMAP.md, slice 2, item 12.
 
 The divergence matrix D ≈ dt·L gives the explicit step Uⁿ⁺¹ = Uⁿ − D Uⁿ and
 the implicit step (I + D) Uⁿ⁺¹ = Uⁿ. For a face with unit normal n outward of
@@ -9,6 +10,14 @@ cell L and un = n·a, row L gets
     D[L,R] += dt·|F|/|V_L| · min(un, 0)
 and symmetrically for R with −n: the standard upwind, for which I + D on a
 periodic uniform grid is exactly the circulant C = I + Σ λ_d (I − S_d).
+
+Wave-system blocks ((p, q) per cell, dim+1 unknowns, src/WaveSystem.cxx:92-107):
+    A(n)   = [[0, c0²nᵀ], [n, 0]],   |A|(n) = [[c0, 0], [0, c0·nnᵀ]]
+    Am     = (A − |A|)/2 · dt·|F|/|V|
+    interior/periodic:  D[L,R] += Am,  D[L,L] −= Am
+    wall (mirror ghost U_R = (I − 2vvᵀ)U_L, v = (0, n)):
+                        D[L,L] += −Am·(2vvᵀ)        (WaveSystem.cxx:150-157)
+    neumann: no contribution                          (WaveSystem.cxx:168)
 """
 
 from __future__ import annotations
@@ -17,7 +26,7 @@ import numpy as np
 import torch
 
 from circulantpreconditioner_tpu_torch.mesh.core import Mesh
-from circulantpreconditioner_tpu_torch.ops.csr import CSRMatrix
+from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix, CSRMatrix
 
 
 def _face_sides(mesh: Mesh):
@@ -67,3 +76,87 @@ def transport_divergence_csr(mesh: Mesh, dt: float, velocity, *, device: torch.d
     n = mesh.n_cells
     return CSRMatrix.from_coo(n, n, np.concatenate(rows), np.concatenate(cols),
                               np.concatenate(vals), device=device, dtype=dtype)
+
+
+def wave_jacobian_blocks(normal: np.ndarray, c0: float) -> tuple[np.ndarray, np.ndarray]:
+    """Batched A(n) and |A|(n) for the linear wave system; normal (k, dim).
+    Mirrors jacobianMatrices (WaveSystem.cxx:92-107) without the coeff factor."""
+    k, dim = normal.shape
+    A = np.zeros((k, dim + 1, dim + 1))
+    absA = np.zeros((k, dim + 1, dim + 1))
+    A[:, 1:, 0] = normal
+    A[:, 0, 1:] = c0 * c0 * normal
+    absA[:, 0, 0] = c0
+    absA[:, 1:, 1:] = c0 * normal[:, :, None] * normal[:, None, :]
+    return A, absA
+
+
+def wave_divergence_bsr(mesh: Mesh, dt: float, c0: float, *, device: torch.device,
+                        dtype: torch.dtype) -> BSRMatrix:
+    """Block upwind divergence matrix for the wave system ((dim+1)² blocks).
+
+    Boundary handling by group name: "Periodic" couples through the wrap,
+    "Neumann" is a no-op, anything else gets the wall mirror condition: the
+    reference's precedence (WaveSystem.cxx:148-173)."""
+    nb = mesh.dim + 1
+    cell, other, normal, area, group, twin_cell = _face_sides(mesh)
+    coeff = dt * area / mesh.cell_volume[cell]
+
+    A, absA = wave_jacobian_blocks(normal, c0)
+    Am = (A - absA) * (0.5 * coeff[:, None, None])
+
+    is_boundary = other < 0
+    m_int = ~is_boundary
+    brows = [cell[m_int], cell[m_int]]
+    bcols = [other[m_int], cell[m_int]]
+    blocks = [Am[m_int], -Am[m_int]]
+
+    per_code = mesh.groups.get("Periodic")
+    neu_code = mesh.groups.get("Neumann")
+    if per_code is not None and mesh.periodic_twin is not None:
+        m_per = is_boundary & (group == per_code) & (twin_cell >= 0)
+        brows += [cell[m_per], cell[m_per]]
+        bcols += [twin_cell[m_per], cell[m_per]]
+        blocks += [Am[m_per], -Am[m_per]]
+    else:
+        m_per = np.zeros_like(is_boundary)
+
+    m_neu = (is_boundary & (group == neu_code) if neu_code is not None
+             else np.zeros_like(is_boundary))
+    m_wall = is_boundary & ~m_per & ~m_neu
+    if m_wall.any():
+        v = np.zeros((int(m_wall.sum()), nb))
+        v[:, 1:] = normal[m_wall]
+        mirror = 2.0 * v[:, :, None] * v[:, None, :]  # 2 v vᵀ
+        brows.append(cell[m_wall])
+        bcols.append(cell[m_wall])
+        blocks.append(-np.einsum("kij,kjl->kil", Am[m_wall], mirror))
+
+    n = mesh.n_cells
+    return BSRMatrix.from_block_coo(n, n, np.concatenate(brows), np.concatenate(bcols),
+                                    np.concatenate(blocks), device=device, dtype=dtype)
+
+
+def wave_block_stencil(dim: int, dt: float, c0: float, spacing) -> tuple[list, np.ndarray]:
+    """Periodic-uniform-grid block stencil {offset_zyx: B} of I + D for the
+    wave system (the input of the block-circulant solver, ROADMAP.md,
+    slice 2, item 12b)."""
+    nb = dim + 1
+    h = np.asarray(spacing, dtype=np.float64)[:dim]
+    offsets: list[tuple[int, ...]] = []
+    blocks: list[np.ndarray] = []
+    center = np.eye(nb)
+    for d in range(dim):  # xyz axis index
+        for sgn in (+1.0, -1.0):
+            e = np.zeros((1, dim))
+            e[0, d] = sgn
+            A, absA = wave_jacobian_blocks(e, c0)
+            Am = 0.5 * (A[0] - absA[0]) * (dt / h[d])
+            off = [0] * dim  # zyx offset: axis index dim-1-d in zyx order
+            off[dim - 1 - d] = int(sgn)
+            offsets.append(tuple(off))
+            blocks.append(Am)
+            center = center - Am
+    offsets.append((0,) * dim)
+    blocks.append(center)
+    return offsets, np.stack(blocks)

@@ -1,7 +1,19 @@
-"""Structured-grid transport stencil: gather-free D·u on cartesian meshes
-(PyTorch counterpart of TransportStencilOperator in
-circulantpreconditioner_tpu/ops/stencil.py). The wave, varying, supercell and
-normal-form stencils are not ported yet (ROADMAP.md, slice 2, item 13)."""
+"""Structured-grid stencil operators: gather-free D·u (PyTorch counterparts
+of circulantpreconditioner_tpu/ops/stencil.py).
+
+- `TransportStencilOperator`: scalar upwind transport on cartesian grids.
+- `WaveStencilOperator`: the wave system on uniform cartesian grids with
+  homogeneous Wall or Periodic boundaries.
+- `VaryingStencilOperator`: any 7-point (block) stencil on a topologically
+  structured mesh (the warped Kershaw hexahedra), as per-offset coefficient
+  fields applied with `torch.roll`.
+- `WaveNormalStencilOperator`: the wave system's normal form of the varying
+  stencil, with (s, n̂) per neighbour instead of a dense block. Its flat
+  field-major apply is the plain version of kernel K2
+  (ops/plane_stencil.py, csrc/plane_stencil.cu).
+
+The supercell (tetrahedral) form waits for ROADMAP.md, slice 2, item 13.
+"""
 
 from __future__ import annotations
 
@@ -9,6 +21,106 @@ from typing import Sequence
 
 import numpy as np
 import torch
+
+from circulantpreconditioner_tpu_torch.ops.assembly import wave_jacobian_blocks
+from circulantpreconditioner_tpu_torch.ops.csr import _sum_blocks
+from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
+
+
+def _to(a, device, dtype) -> torch.Tensor:
+    return torch.from_numpy(np.array(a, dtype=np.float64, order="C")).to(device=device,
+                                                                          dtype=dtype)
+
+
+def _neighbour(gt: torch.Tensor, off, layout: str) -> torch.Tensor:
+    """The field-major gt read at cell + off: one flat roll of (m, N) for the
+    "flat" layout (off an int), per-axis rolls of (m, nz, ny, nx) for
+    "grid_last" (off a zyx tuple)."""
+    if layout == "flat":
+        return torch.roll(gt, -off, dims=1) if off else gt
+    for ax, o in enumerate(off):
+        if o:
+            gt = torch.roll(gt, -o, dims=ax + 1)
+    return gt
+
+
+def _side_tables(dim: int, dt: float, c0: float, spacing):
+    """Per-side upwind blocks Am and wall mirrors for the wave system.
+
+    Sides are (axis_zyx, dir) with dir=+1 the face whose outward normal is
+    +e_axis. Returns (Am (nsides,b,b), mirror (nsides,b,b))."""
+    h = np.asarray(spacing, dtype=np.float64)[:dim]
+    nb = dim + 1
+    Ams, mirrors = [], []
+    for ax_zyx in range(dim):
+        d_xyz = dim - 1 - ax_zyx
+        for sgn in (+1.0, -1.0):
+            e = np.zeros((1, dim))
+            e[0, d_xyz] = sgn
+            A, absA = wave_jacobian_blocks(e, c0)
+            Ams.append(0.5 * (A[0] - absA[0]) * (dt / h[d_xyz]))
+            v = np.zeros(nb)
+            v[1:] = e[0]
+            mirrors.append(np.eye(nb) - 2.0 * np.outer(v, v))
+    return np.stack(Ams), np.stack(mirrors)
+
+
+class WaveStencilOperator:
+    """D of the wave system on a uniform cartesian grid, stencil-evaluated.
+
+    bc: "wall" (reference default: mirror ghosts) or "periodic". State
+    layout: flat cell-major (N·(dim+1),), zyx with x fastest, as the
+    assembled BSRMatrix, so `matvec` is a drop-in replacement."""
+
+    def __init__(self, shape_zyx, bc: str, Am: torch.Tensor, mirror: torch.Tensor):
+        if bc not in ("wall", "periodic"):
+            raise ValueError(f"bc must be 'wall' or 'periodic', got {bc!r}")
+        self.shape_zyx = tuple(int(v) for v in shape_zyx)
+        self.bc = bc
+        self.Am = Am  # (2·dim, b, b)
+        self.mirror = mirror  # (2·dim, b, b)
+
+    @classmethod
+    def create(cls, shape_xyz: Sequence[int], dt: float, c0: float, spacing_xyz,
+               bc: str = "wall", *, device: torch.device, dtype: torch.dtype):
+        check_real_dtype(dtype)
+        Am, mirror = _side_tables(len(shape_xyz), dt, c0, spacing_xyz)
+        return cls(tuple(reversed(tuple(int(v) for v in shape_xyz))), bc,
+                   _to(Am, device, dtype), _to(mirror, device, dtype))
+
+    @classmethod
+    def from_model(cls, model, bc: str = "wall"):
+        mesh = model.mesh
+        return cls.create(mesh.structured_shape, model.dt, model.c0, mesh.spacing, bc=bc,
+                          device=model.device, dtype=model.dtype)
+
+    @property
+    def nb(self) -> int:
+        return len(self.shape_zyx) + 1
+
+    def matvec(self, U: torch.Tensor) -> torch.Tensor:
+        """y = D U (divergence only: apply I+D for the implicit system)."""
+        nb = self.nb
+        g = U.reshape(self.shape_zyx + (nb,))
+        out = torch.zeros_like(g)
+        s = 0
+        for ax, n in enumerate(self.shape_zyx):
+            for sgn in (+1, -1):
+                nbr = torch.roll(g, -sgn, dims=ax)  # neighbour in the +sgn direction
+                if self.bc != "periodic":
+                    # the face at the domain edge has no neighbour: wall
+                    # mirror ghost (I − 2vvᵀ)U
+                    bshape = [1] * g.ndim
+                    bshape[ax] = n
+                    edge = torch.arange(n, device=g.device).reshape(bshape) == (
+                        n - 1 if sgn > 0 else 0)
+                    ghost = torch.einsum("...j,ij->...i", g, self.mirror[s])
+                    nbr = torch.where(edge, ghost, nbr)
+                out = out + torch.einsum("...j,ij->...i", nbr - g, self.Am[s])
+                s += 1
+        return out.reshape(-1)
+
+    __call__ = matvec
 
 
 class TransportStencilOperator:
@@ -71,3 +183,263 @@ class TransportStencilOperator:
                 else:
                     out = out - lm * (torch.where(first, g, 0.0) - torch.where(last, dn, 0.0))
         return out.reshape(-1)
+
+
+class _GridStencil:
+    """The applies shared by the grid stencils: `_apply_gt` (on the
+    field-major (m, N) or (m, nz, ny, nx) view, returning the m output
+    components) is the subclass's; shape_zyx, m and layout are its fields."""
+
+    def _fm_shape(self) -> tuple[int, ...]:
+        return (self.m, -1) if self.layout == "flat" else (self.m,) + self.shape_zyx
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Cell-major apply: x flat (N·m,), cell j owning x[j·m:(j+1)·m]."""
+        gt = x.reshape(-1, self.m).T.reshape(self._fm_shape())
+        return torch.stack(self._apply_gt(gt), dim=-1).reshape(-1)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.matvec(x)
+
+    def matvec_fm(self, g: torch.Tensor) -> torch.Tensor:
+        """Field-major apply: g (m, N) [flat] or (m, *grid) [grid_last] → the
+        same shape. Same arithmetic as `matvec` without the (N,m)↔(m,N)
+        relayouts."""
+        return torch.stack(self._apply_gt(g))
+
+    def matvec_fm_flat(self, x: torch.Tensor) -> torch.Tensor:
+        """Field-major apply on a flat (m·N,) vector whose x.reshape(m, ...)
+        is the field view, for Krylov solvers whose vectors are 1D."""
+        return self.matvec_fm(x.reshape(self._fm_shape())).reshape(-1)
+
+
+class VaryingStencilOperator(_GridStencil):
+    """Gather-free SpMV for topologically structured meshes with varying
+    coefficients (the warped Kershaw / hexa families): the assembled BSR
+    operator re-expressed as per-offset dense coefficient fields
+
+        y[c] = Σ_off  C_off[c] @ x[c + off],   off ∈ {0, ±ex, ±ey, ±ez}
+
+    applied with `torch.roll` shifts and unrolled (m×m) multiply-adds.
+    Wall/Neumann boundaries need no masks: the assembled matrix has zero
+    blocks on the outward-facing boundary layers, so wrapped values are
+    multiplied by zero; a periodic wrap is the roll itself.
+
+    Layouts:
+    - "flat": coefs (m, m, N) with the whole grid as the last axis and each
+      neighbour a single flat roll. Valid when every wrap-crossing boundary
+      layer has zero coefficients (wall/Neumann assemblies), detected at
+      build time (`_flat_safe`).
+    - "grid_last": coefs (m, m, nz, ny, nx) and per-axis rolls, for
+      periodic wraps."""
+
+    def __init__(self, shape_zyx, m: int, offsets, coefs, layout: str = "flat"):
+        if layout not in ("flat", "grid_last"):
+            raise ValueError(f"layout must be 'flat' or 'grid_last', got {layout!r}")
+        self.shape_zyx = tuple(int(v) for v in shape_zyx)
+        self.m = int(m)
+        self.offsets = tuple(offsets)  # flat ints ("flat") or zyx tuples ("grid_last")
+        self.coefs = tuple(coefs)  # per-offset (m, m, N) or (m, m, nz, ny, nx)
+        self.layout = layout
+
+    @classmethod
+    def from_blocks(cls, rows, cols, blocks, shape_xyz, *, device: torch.device,
+                    dtype: torch.dtype):
+        """rows/cols: block indices (nnzb,), blocks: (nnzb, m, m), e.g. a
+        BSR's block COO. shape_xyz: grid shape, cells numbered x fastest."""
+        check_real_dtype(dtype)
+        rows = np.asarray(rows, dtype=np.int64)
+        cols = np.asarray(cols, dtype=np.int64)
+        blocks = np.asarray(blocks, dtype=np.float64)
+        m = blocks.shape[-1]
+        dims_xyz = tuple(int(v) for v in shape_xyz)
+        nx = dims_xyz[0]
+        ny = dims_xyz[1] if len(dims_xyz) > 1 else 1
+        nz = dims_xyz[2] if len(dims_xyz) > 2 else 1
+
+        def split(idx):
+            return idx % nx, (idx // nx) % ny, idx // (nx * ny)
+
+        rx, ry, rz = split(rows)
+        cx, cy, cz = split(cols)
+
+        def delta(a, b, n):
+            d = (b - a) % n
+            return np.where(d == 0, 0, np.where(d == 1, 1, np.where(d == n - 1, -1, 99)))
+
+        dx, dy, dz = delta(rx, cx, nx), delta(ry, cy, ny), delta(rz, cz, nz)
+        if (np.abs(dx) > 1).any() or (np.abs(dy) > 1).any() or (np.abs(dz) > 1).any():
+            raise ValueError("matrix is not a face-neighbour stencil on this grid")
+        if ((dx != 0).astype(int) + (dy != 0).astype(int) + (dz != 0).astype(int) > 1).any():
+            raise ValueError("matrix couples diagonal neighbours — not a 7-point stencil")
+
+        shape_zyx = (nz, ny, nx)
+        N = nz * ny * nx
+        key = (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1)
+        offsets, coefs_np = [], []
+        for k in np.unique(key):
+            sel = key == k
+            C = _sum_blocks(rows[sel], blocks[sel], N).reshape(shape_zyx + (m, m))
+            offsets.append((int(k) // 9 - 1, (int(k) // 3) % 3 - 1, int(k) % 3 - 1))
+            coefs_np.append(C)
+
+        if cls._flat_safe(offsets, coefs_np, shape_zyx):
+            # wrap-crossing layers all zero: flat rolls are exact
+            strides = (ny * nx, nx, 1)
+            flat_offsets = tuple(int(sum(o * s for o, s in zip(off, strides)))
+                                 for off in offsets)
+            coefs = [C.reshape(-1, m, m).transpose(1, 2, 0) for C in coefs_np]
+            return cls.from_arrays(shape_zyx, m, flat_offsets, coefs, "flat",
+                                   device=device, dtype=dtype)
+        coefs = [C.transpose(3, 4, 0, 1, 2) for C in coefs_np]
+        return cls.from_arrays(shape_zyx, m, tuple(offsets), coefs, "grid_last",
+                               device=device, dtype=dtype)
+
+    @classmethod
+    def from_arrays(cls, shape_zyx, m: int, offsets, coefs, layout: str, *,
+                    device: torch.device, dtype: torch.dtype):
+        """From the JAX operator's `coefs` as NumPy (same layout)."""
+        check_real_dtype(dtype)
+        offsets = tuple(int(o) if layout == "flat" else tuple(int(v) for v in o)
+                        for o in offsets)
+        return cls(shape_zyx, m, offsets, [_to(C, device, dtype) for C in coefs], layout)
+
+    @staticmethod
+    def _flat_safe(offsets, coefs_np, shape_zyx) -> bool:
+        """True when, for every offset, the cells whose neighbour would wrap
+        around an axis carry an all-zero coefficient block (wall/Neumann
+        assemblies): a flat roll then differs from the per-axis rolls only
+        where it is multiplied by zero."""
+        for off, C in zip(offsets, coefs_np):
+            for ax, o in enumerate(off):
+                if o == 0:
+                    continue
+                idx = [slice(None)] * 3
+                idx[ax] = shape_zyx[ax] - 1 if o > 0 else 0
+                if np.any(C[tuple(idx)]):
+                    return False
+        return True
+
+    @classmethod
+    def from_bsr(cls, A, shape_xyz, dtype: torch.dtype | None = None):
+        """Block variant from a BSRMatrix (its block COO)."""
+        rows, cols, blocks = A.coo_numpy()
+        return cls.from_blocks(rows, cols, blocks, shape_xyz, device=A.blocks.device,
+                               dtype=dtype or A.blocks.dtype)
+
+    def _apply_gt(self, gt: torch.Tensor) -> list[torch.Tensor]:
+        """Core apply on the field-major gt (m, N) [flat] or (m, *grid)
+        [grid_last]; returns the m output components."""
+        m = self.m
+        ys = [torch.zeros(gt.shape[1:], dtype=gt.dtype, device=gt.device) for _ in range(m)]
+        for off, C in zip(self.offsets, self.coefs):
+            nbr = _neighbour(gt, off, self.layout)
+            for i in range(m):
+                acc = ys[i]
+                for j in range(m):
+                    acc = acc + C[i, j] * nbr[j]
+                ys[i] = acc
+        return ys
+
+
+
+class WaveNormalStencilOperator(_GridStencil):
+    """Physics-structured wave-system SpMV: the off-diagonal upwind blocks
+    are rank-structured, Am = s·(A − |A|)(n̂)/2 with A = [[0, c0²n̂ᵀ], [n̂, 0]],
+    |A| = [[c0, 0], [0, c0·n̂n̂ᵀ]] (reference jacobianMatrices,
+    src/WaveSystem.cxx:92-107), so each neighbour block is 1+dim numbers
+    (s, n̂) instead of (dim+1)², applied as
+
+        t = n̂·v_nbr
+        out_p   += s·c0·(c0·t − p_nbr)/2
+        out_vec += s·(p_nbr − c0·t)/2 · n̂
+
+    The diagonal block stays dense (it gathers wall-mirror terms and face
+    sums). Built by exact decomposition of a VaryingStencilOperator's blocks
+    (flat or grid_last): `from_varying` returns None if any block deviates
+    from the wave form. The flat `matvec_fm` is kernel K2's plain version."""
+
+    def __init__(self, shape_zyx, c0: float, offsets, layout: str, arrays):
+        self.shape_zyx = tuple(int(v) for v in shape_zyx)
+        self.c0 = float(c0)
+        self.offsets = tuple(offsets)  # flat ints or zyx tuples; diagonal excluded
+        self.layout = layout  # "flat" or "grid_last"
+        self.arrays = tuple(arrays)  # (diag (m,m,…), s (K,…), nvec (K,dim,…)), grid trailing
+
+    @property
+    def m(self) -> int:
+        return int(self.arrays[0].shape[0])
+
+    @classmethod
+    def from_varying(cls, V: VaryingStencilOperator, c0: float, rtol: float = 1e-5):
+        """Exact decomposition in float64 on the host; None if V is not a
+        wave-form stencil."""
+        if V.layout not in ("flat", "grid_last"):
+            return None
+        m = V.m
+        dim = m - 1
+        if dim not in (1, 2, 3):
+            return None
+        diag = None
+        offs, s_list, n_list = [], [], []
+        diag_key = 0 if V.layout == "flat" else (0,) * len(V.shape_zyx)
+        for off, Ct in zip(V.offsets, V.coefs):
+            C = Ct.detach().cpu().numpy().astype(np.float64).reshape(m, m, -1)
+            if off == diag_key:
+                diag = C
+                continue
+            s = -2.0 * C[0, 0] / c0
+            sn = 2.0 * C[1:, 0]
+            safe = np.where(np.abs(s) > 0, s, 1.0)
+            n = sn / safe
+            scale = np.abs(C).max() + 1e-300
+            err = np.abs(C[0, 1:] - 0.5 * c0 * c0 * sn).max()
+            err = max(err, np.abs(
+                C[1:, 1:] + 0.5 * c0 * s * n[:, None, :] * n[None, :, :]).max())
+            if err > rtol * scale:
+                return None
+            offs.append(off)
+            s_list.append(s)
+            n_list.append(n)
+        if diag is None:
+            return None
+        shp = V.shape_zyx if V.layout == "grid_last" else (int(np.prod(V.shape_zyx)),)
+        return cls.from_arrays(
+            V.shape_zyx, c0, offs, V.layout,
+            diag.reshape((m, m) + shp), np.stack(s_list).reshape((len(offs),) + shp),
+            np.stack(n_list).reshape((len(offs), dim) + shp),
+            device=V.coefs[0].device, dtype=V.coefs[0].dtype)
+
+    @classmethod
+    def from_arrays(cls, shape_zyx, c0: float, offsets, layout: str, diag, s, nvec, *,
+                    device: torch.device, dtype: torch.dtype):
+        """From the JAX operator's `arrays` (diag, s, nvec) as NumPy."""
+        check_real_dtype(dtype)
+        offsets = tuple(int(o) if layout == "flat" else tuple(int(v) for v in o)
+                        for o in offsets)
+        return cls(shape_zyx, c0, offsets, layout,
+                   tuple(_to(a, device, dtype) for a in (diag, s, nvec)))
+
+    def _apply_gt(self, gt: torch.Tensor) -> list[torch.Tensor]:
+        """Core apply on the field-major representation; returns m outputs."""
+        diag, s, nvec = self.arrays
+        m = self.m
+        dim = m - 1
+        ys = []
+        for i in range(m):
+            acc = diag[i, 0] * gt[0]
+            for j in range(1, m):
+                acc = acc + diag[i, j] * gt[j]
+            ys.append(acc)
+        half_c0 = 0.5 * self.c0
+        for k, off in enumerate(self.offsets):
+            nbr = _neighbour(gt, off, self.layout)
+            p = nbr[0]
+            t = nvec[k, 0] * nbr[1]
+            for d in range(1, dim):
+                t = t + nvec[k, d] * nbr[1 + d]
+            u = s[k] * (0.5 * p - half_c0 * t)  # s·(p − c0·t)/2
+            ys[0] = ys[0] + half_c0 * s[k] * (self.c0 * t - p)
+            for d in range(dim):
+                ys[1 + d] = ys[1 + d] + u * nvec[k, d]
+        return ys

@@ -1,0 +1,261 @@
+"""Geometric-Galerkin grid V-cycle preconditioner for meshes whose topology
+is a grid (the warped Kershaw hexahedra): PyTorch counterpart of
+`GridVCyclePC` in circulantpreconditioner_tpu/solvers/aggregation_pc.py, for
+one cell per grid site.
+
+Each level coarsens 2×2×2 boxes of sites. The coarse operators are exact
+Galerkin restrictions R·A·P of the assembled fine operator (piecewise
+constant P, mean R, R·P = I), built on the host with SciPy, so they inherit
+the warped coefficients. Every level applies its operator as a gather-free
+7-point varying stencil; the fine level uses the model's own operators
+(kernel K2 on the GPU). Transfers are reshapes, sums and broadcasts; the
+smoother is ω-damped point-block Jacobi, V(1,1) by default, and the bottom
+level is a dense inverse (one matmul).
+
+The ω = 0.8 damping is load-bearing: undamped block-Jacobi smoothing
+amplifies high-frequency error on the upwind wave operator.
+
+The supercell first level (cells_per_site > 1) and the algebraic
+`AggregationVCyclePC`, which needs the clustered-window SpMV, wait for
+ROADMAP.md, slice 2, items 18 and 19.
+"""
+
+from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix
+
+
+@dataclass
+class _GridLevel:
+    """A level on an (nx, ny, nz) site grid: box mean / broadcast transfers
+    and a 7-point varying-stencil operator."""
+
+    A: Callable            # cell-major flat operator apply
+    Dinv: torch.Tensor     # (n_sites, b, b) inverted diagonal blocks
+    cnt_inv: torch.Tensor  # (cz, cy, cx, 1) 1/|box|, boundary truncation included
+    shape_xyz: tuple       # fine grid (nx, ny, nz)
+    cshape_xyz: tuple      # coarse grid (cx, cy, cz)
+    b: int
+    A_fm: Callable | None = None  # field-major flat operator apply
+
+
+def _grid_smooth(L: _GridLevel, omega: float, r: torch.Tensor) -> torch.Tensor:
+    z = torch.einsum("nij,nj->ni", L.Dinv, r.reshape(-1, L.b)).reshape(-1)
+    return omega * z if omega != 1.0 else z
+
+
+def _box_sum(g: torch.Tensor, shape_zyx, cshape_zyx, lead: int) -> torch.Tensor:
+    """Sum over 2×2×2 boxes of the grid axes g.shape[lead:lead+3], the grid
+    zero-padded to even extents."""
+    pads = [0, 0] * (g.ndim - lead - 3)
+    for n, c in zip(reversed(shape_zyx), reversed(cshape_zyx)):
+        pads += [0, 2 * c - n]
+    if any(pads):
+        g = torch.nn.functional.pad(g, pads)
+    cz, cy, cx = cshape_zyx
+    shp = g.shape
+    g = g.reshape(shp[:lead] + (cz, 2, cy, 2, cx, 2) + shp[lead + 3:])
+    return g.sum(dim=(lead + 1, lead + 3, lead + 5))
+
+
+def _grid_restrict(L: _GridLevel, r: torch.Tensor) -> torch.Tensor:
+    nx, ny, nz = L.shape_xyz
+    cx, cy, cz = L.cshape_xyz
+    s = _box_sum(r.reshape(nz, ny, nx, L.b), (nz, ny, nx), (cz, cy, cx), 0)
+    return (s * L.cnt_inv).reshape(-1)
+
+
+def _grid_prolong(L: _GridLevel, zc: torch.Tensor) -> torch.Tensor:
+    nx, ny, nz = L.shape_xyz
+    cx, cy, cz = L.cshape_xyz
+    g = zc.reshape(cz, 1, cy, 1, cx, 1, L.b).expand(cz, 2, cy, 2, cx, 2, L.b)
+    return g.reshape(2 * cz, 2 * cy, 2 * cx, L.b)[:nz, :ny, :nx].reshape(-1)
+
+
+def _grid_smooth_fm(L: _GridLevel, omega: float, g: torch.Tensor) -> torch.Tensor:
+    z = torch.einsum("nij,jn->in", L.Dinv, g.reshape(L.b, -1)).reshape(-1)
+    return omega * z if omega != 1.0 else z
+
+
+def _grid_restrict_fm(L: _GridLevel, g: torch.Tensor) -> torch.Tensor:
+    nx, ny, nz = L.shape_xyz
+    cx, cy, cz = L.cshape_xyz
+    s = _box_sum(g.reshape(L.b, nz, ny, nx), (nz, ny, nx), (cz, cy, cx), 1)
+    return (s * L.cnt_inv.reshape(1, cz, cy, cx)).reshape(-1)
+
+
+def _grid_prolong_fm(L: _GridLevel, zc: torch.Tensor) -> torch.Tensor:
+    nx, ny, nz = L.shape_xyz
+    cx, cy, cz = L.cshape_xyz
+    g = zc.reshape(L.b, cz, 1, cy, 1, cx, 1).expand(L.b, cz, 2, cy, 2, cx, 2)
+    return g.reshape(L.b, 2 * cz, 2 * cy, 2 * cx)[:, :nz, :ny, :nx].reshape(-1)
+
+
+def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
+    if l == len(levels):
+        if fm:
+            x = bot_inv @ r.reshape(bot_b, -1).T.reshape(-1)
+            return x.reshape(-1, bot_b).T.reshape(-1)
+        return bot_inv @ r
+    L = levels[l]
+    if fm:
+        smooth, restrict, prolong = _grid_smooth_fm, _grid_restrict_fm, _grid_prolong_fm
+        A = L.A_fm
+    else:
+        smooth, restrict, prolong, A = _grid_smooth, _grid_restrict, _grid_prolong, L.A
+    z = smooth(L, omega, r)
+    for _ in range(n_smooth[0] - 1):
+        z = z + smooth(L, omega, r - A(z))
+    rc = restrict(L, r - A(z))
+    z = z + prolong(L, _vcycle(levels, bot_inv, n_smooth, omega, l + 1, rc, fm=fm,
+                               bot_b=bot_b))
+    for _ in range(n_smooth[1]):
+        z = z + smooth(L, omega, r - A(z))
+    return z
+
+
+def _shifted_apply(Dmv, shift, x):
+    return shift * x + Dmv(x)
+
+
+class GridVCyclePC:
+    """M⁻¹ r ≈ A⁻¹ r by one V(pre, post) cycle over geometric-Galerkin grid
+    levels; see the module docstring."""
+
+    def __init__(self, levels, bot_inv: torch.Tensor, n_smooth=(1, 1), omega: float = 0.8,
+                 b: int | None = None):
+        self.levels = tuple(levels)
+        self.bot_inv = bot_inv
+        self.n_smooth = tuple(n_smooth)
+        self.omega = float(omega)
+        # block size for the bottom level's field-major relayout, needed
+        # when the whole mesh fits the bottom (zero levels)
+        self.b = int(b) if b is not None else (levels[-1].b if levels else 1)
+
+    @classmethod
+    def from_grid_model(cls, D: BSRMatrix, shape_xyz, cells_per_site: int = 1,
+                        A0_apply=None, A0_apply_fm=None, shift: float = 1.0,
+                        bottom_max: int = 600, n_smooth=(1, 1), omega: float = 0.8,
+                        dtype: torch.dtype | None = None):
+        """Preconditioner of A = shift·I + D. A0_apply / A0_apply_fm: the
+        production fine-level matvecs (cell-major flat / field-major flat);
+        built from D's varying stencil where None."""
+        import scipy.sparse as sp
+
+        from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
+
+        if int(cells_per_site) != 1:
+            raise NotImplementedError("GridVCyclePC with cells_per_site > 1 (the supercell "
+                                      "first level) is not ported yet: see ROADMAP.md, "
+                                      "slice 2, item 19")
+        device = D.blocks.device
+        dtype = dtype or D.blocks.dtype
+        b = D.block_size
+        # the blocks in their working dtype, widened: the JAX package's
+        # D.to_csr(dtype).to_scipy() without the round trip to the device
+        A0 = (shift * sp.identity(D.shape[0], format="csr")
+              + D.to_scipy().astype(np.float64)).tocsr()
+        if A0_apply is None or A0_apply_fm is None:
+            op0 = VaryingStencilOperator.from_bsr(D, shape_xyz, dtype=dtype)
+            if A0_apply is None:
+                A0_apply = functools.partial(_shifted_apply, op0.matvec, shift)
+            if A0_apply_fm is None and op0.layout == "flat":
+                A0_apply_fm = functools.partial(_shifted_apply, op0.matvec_fm_flat, shift)
+
+        levels = []
+        A_l = A0
+        shape = tuple(int(v) for v in shape_xyz)
+        first = True
+        while int(np.prod(shape)) > bottom_max:
+            cshape = tuple(-(-s // 2) for s in shape)
+            nx, ny, nz = shape
+            cx, cy, cz = cshape
+            # site → box flat index map (x fastest)
+            xi, yi, zi = np.arange(nx) // 2, np.arange(ny) // 2, np.arange(nz) // 2
+            site = (xi[None, None, :] + cx * yi[None, :, None]
+                    + cx * cy * zi[:, None, None]).reshape(-1)
+            n_c = cx * cy * cz
+            cnt = np.bincount(site, minlength=n_c).astype(np.float64)
+            cnt_inv = torch.as_tensor((1.0 / cnt).reshape(cz, cy, cx, 1)).to(
+                device=device, dtype=dtype)
+            if first:
+                # the first grid level is the fine level: the production operators
+                A_cm, A_fm = A0_apply, A0_apply_fm
+            else:
+                op_l = _varying_from_scipy(A_l, b, shape, device, dtype)
+                A_cm = op_l.matvec
+                A_fm = op_l.matvec_fm_flat if op_l.layout == "flat" else None
+            levels.append(_GridLevel(A=A_cm, Dinv=_block_diag_inv(A_l, b, device, dtype),
+                                     cnt_inv=cnt_inv, shape_xyz=shape, cshape_xyz=cshape,
+                                     b=b, A_fm=A_fm))
+            A_l = _galerkin_map(A_l, b, site, n_c)
+            shape = cshape
+            first = False
+
+        bot_inv = torch.as_tensor(np.linalg.inv(A_l.toarray())).to(device=device, dtype=dtype)
+        return cls(levels, bot_inv, n_smooth=n_smooth, omega=omega, b=b)
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        """Cell-major flat apply."""
+        return _vcycle(self.levels, self.bot_inv, self.n_smooth, self.omega, 0, r,
+                       bot_b=self.b)
+
+    def apply_fm(self, g: torch.Tensor) -> torch.Tensor:
+        """Field-major flat apply (g.reshape(b, n) is the field view), with
+        no relayout above the bottom level. Raises when a level has no
+        field-major operator (a grid_last, i.e. periodic, level)."""
+        missing = [l for l, L in enumerate(self.levels) if L.A_fm is None]
+        if missing:
+            raise ValueError(f"GridVCyclePC.apply_fm: levels {missing} have no field-major "
+                             "operator (periodic grid_last stencils); use apply")
+        return _vcycle(self.levels, self.bot_inv, self.n_smooth, self.omega, 0, g, fm=True,
+                       bot_b=self.b)
+
+    __call__ = apply
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels) + 1
+
+
+def _galerkin_map(A_csr, b: int, agg: np.ndarray, n_agg: int):
+    """Galerkin R·A·P for an aggregate map (piecewise-constant P, mean R),
+    block size b."""
+    import scipy.sparse as sp
+
+    n = len(agg)
+    cnt = np.bincount(agg, minlength=n_agg).astype(np.float64)
+    P_a = sp.csr_matrix((np.ones(n), (np.arange(n), agg)), shape=(n, n_agg))
+    R_a = sp.csr_matrix((1.0 / cnt[agg], (agg, np.arange(n))), shape=(n_agg, n))
+    eye_b = sp.identity(b, format="csr")
+    P = sp.kron(P_a, eye_b).tocsr()
+    R = sp.kron(R_a, eye_b).tocsr()
+    return (R @ A_csr @ P).tocsr()
+
+
+def _varying_from_scipy(A_csr, b: int, shape_xyz, device: torch.device, dtype: torch.dtype):
+    from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
+
+    Ab = A_csr.tobsr(blocksize=(b, b))
+    brows = np.repeat(np.arange(A_csr.shape[0] // b), np.diff(Ab.indptr))
+    return VaryingStencilOperator.from_blocks(brows, Ab.indices, Ab.data, shape_xyz,
+                                              device=device, dtype=dtype)
+
+
+def _block_diag_inv(A_csr, b: int, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """(n, b, b) inverted diagonal blocks of a SciPy CSR with b×b block
+    structure."""
+    coo = A_csr.tocoo()
+    n = A_csr.shape[0] // b
+    br, bc = coo.row // b, coo.col // b
+    m = br == bc
+    blocks = np.zeros((n, b, b))
+    blocks[br[m], coo.row[m] % b, coo.col[m] % b] = coo.data[m]
+    return torch.as_tensor(np.linalg.inv(blocks)).to(device=device, dtype=dtype)

@@ -49,7 +49,7 @@ def test_driver_checkpoint_output(tmp_path):
     assert it == res.iterations and np.array_equal(state, res.state.numpy())
 
 
-@pytest.mark.parametrize("extra", [["--mesh-family", "kershaw"], ["--vtk"],
+@pytest.mark.parametrize("extra", [["--mesh-family", "tetra"], ["--vtk"],
                                    ["--shard", "slab"]])
 def test_unported_driver_options_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,5 +1,6 @@
-"""Tests of the port that need the GPU: kernel K1 against its plain version,
-and one preconditioned GMRES step through K1. They skip without a GPU.
+"""Tests of the port that need the GPU: kernels K1 and K2 against their plain
+versions, one GMRES step preconditioned through K1, and one grid-V-cycle
+GMRES step on the wave system through K2. They skip without a GPU.
 
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
@@ -23,7 +24,8 @@ from circulantpreconditioner_tpu_torch.ops.circulant import CirculantTransportOp
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("K1 is a CUDA kernel: needs a GPU (torch.cuda.is_available() is False)")
+        pytest.skip("K1 and K2 are CUDA kernels: need a GPU (torch.cuda.is_available() "
+                    "is False)")
     return torch.device("cuda")
 
 
@@ -74,3 +76,85 @@ def test_gmres_step_with_k1_preconditioner(cuda):
     assert tfc.FusedCirculantSolver.launches > before
     u_ref, _ = model.fft_stepper("fft")(model.initial_state())
     assert (u1 - u_ref).abs().max().item() <= 1e-4 * u_ref.abs().max().item()
+
+
+# --- kernel K2: the wave normal-form stencil SpMV -----------------------------
+# Tolerance: K2 and its plain version (torch.roll per offset) add the same
+# terms in the same order; float32 contractions into FMAs move the result by
+# a few ulp, so the bar is 1e-5 · max|y_plain| in float32 and 1e-12 in float64.
+
+def _kershaw_wave(n, dev, dtype, cfl=1e3 / 3):
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+
+    return WaveSystem(kershaw_mesh(((-0.5, 0.5),) * 3, n), cfl=cfl, device=dev, dtype=dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [(16, 8, 5), (5, 4, 6), (32, 32, 32)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_k2_kernel_matches_plain(cuda, n, dtype, tol):
+    from circulantpreconditioner_tpu_torch.ops.plane_stencil import (
+        PlaneStencilMatvec,
+        make_plane_stencil_matvec,
+    )
+
+    Wn = _kershaw_wave(n, cuda, dtype).normal_operator
+    mv = make_plane_stencil_matvec(Wn)
+    g = torch.as_tensor(np.random.default_rng(2).random((4, int(np.prod(n)))), device=cuda,
+                        dtype=dtype)
+    before = PlaneStencilMatvec.launches
+    y = mv(g)
+    y_grid = mv(g.reshape(4, n[2], n[1], n[0]))
+    torch.cuda.synchronize()
+    assert PlaneStencilMatvec.launches == before + 2
+    yp = Wn.matvec_fm(g)
+    assert (y - yp).abs().max().item() <= tol * yp.abs().max().item()
+    assert torch.equal(y_grid.reshape(4, -1), y)
+
+
+@pytest.mark.gpu
+def test_k2_wrapper_rejects_what_it_cannot_take(cuda):
+    from circulantpreconditioner_tpu_torch.ops.plane_stencil import plane_stencil_cuda
+
+    Wn = _kershaw_wave((5, 4, 6), cuda, torch.float32).normal_operator
+    N = 5 * 4 * 6
+    with pytest.raises(ValueError, match="float32"):
+        plane_stencil_cuda(Wn, torch.ones(4, N, device=cuda, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA"):
+        plane_stencil_cuda(Wn, torch.ones(4, N))
+    with pytest.raises(ValueError, match="shape"):
+        plane_stencil_cuda(Wn, torch.ones(4, N + 1, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        plane_stencil_cuda(Wn, torch.ones(N, 4, device=cuda).T)
+    with pytest.raises(ValueError, match="float16"):
+        plane_stencil_cuda(Wn, torch.ones(4, N, device=cuda, dtype=torch.float16))
+
+
+@pytest.mark.gpu
+def test_gridmg_gmres_step_launches_k2(cuda):
+    """One implicit step at Kershaw 16³, GMRES right-preconditioned by the
+    grid V-cycle, through K2; it agrees with the plain operator's step."""
+    import functools
+
+    from circulantpreconditioner_tpu_torch.models.transport import _identity_plus
+    from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+    from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
+
+    model = _kershaw_wave((16, 16, 16), cuda, torch.float32)
+    pc = GridVCyclePC.from_grid_model(model.divergence, (16, 16, 16),
+                                      A0_apply=model.implicit_matvec(),
+                                      A0_apply_fm=model.implicit_matvec_fm())
+    G0 = model.pack_fm(model.initial_state()).reshape(-1)
+    before = PlaneStencilMatvec.launches
+    G1, _, iters, _, converged = model.implicit_stepper_fm(M_fm=pc.apply_fm, side="right")(G0)
+    torch.cuda.synchronize()
+    assert converged and iters > 0
+    assert PlaneStencilMatvec.launches > before + iters  # the matvec and the V-cycle's fine level
+    A_plain = functools.partial(_identity_plus, model.normal_operator.matvec_fm_flat)
+    pc_plain = GridVCyclePC.from_grid_model(model.divergence, (16, 16, 16),
+                                            A0_apply=model.implicit_matvec(), A0_apply_fm=A_plain)
+    ref = make_gmres(A_plain, pc_plain.apply_fm, side="right")(G0, G0)
+    assert ref.converged and abs(ref.iters - iters) <= 1
+    assert (G1 - ref.x).abs().max().item() <= 1e-4 * ref.x.abs().max().item()

@@ -1,0 +1,117 @@
+"""The port's wave drivers (`--device cpu --f64`) against the JAX drivers on
+the same command lines: the same step count, the same GMRES iterations in
+every step, and final states within 1e-10 × max|U|. GMRES without a
+preconditioner runs at --cfl 10 on the Kershaw mesh: at the default cfl
+1e3/3 it amplifies roundoff past any such bound (see
+test_torch_wave_model.py). Also the CLI repairs: --kershaw-eps,
+make_output_cb(split=...) and the hexa/kershaw mesh families."""
+
+import argparse
+
+import numpy as np
+import pytest
+
+from circulantpreconditioner_tpu.drivers import common as j_common
+from circulantpreconditioner_tpu.drivers import wave_explicit as j_exp
+from circulantpreconditioner_tpu.drivers import wave_implicit as j_imp
+from circulantpreconditioner_tpu_torch.drivers import common as t_common
+from circulantpreconditioner_tpu_torch.drivers import wave_explicit as t_exp
+from circulantpreconditioner_tpu_torch.drivers import wave_implicit as t_imp
+
+KERSHAW = ["--mesh-family", "kershaw", "6", "6", "6"]
+CART = ["8", "8"]
+
+
+def _args(tmp_path, extra, ntmax=3):
+    return extra + ["--tmax", "1e9", "--ntmax", str(ntmax), "--f64",
+                    "--result-dir", str(tmp_path)]
+
+
+def _same(rt, rj):
+    assert rt.iterations == rj.iterations
+    uj = np.asarray(rj.state)
+    np.testing.assert_allclose(rt.state.numpy(), uj, rtol=0, atol=1e-10 * np.abs(uj).max())
+    its = lambda r: [d["extras"][0] for d in r.diagnostics if d["extras"]]  # noqa: E731
+    assert its(rt) == its(rj)
+
+
+@pytest.mark.parametrize("mesh", [KERSHAW, CART])
+def test_wave_explicit_driver_matches_jax(tmp_path, mesh):
+    argv = _args(tmp_path, mesh, ntmax=5)
+    _same(t_exp.main(argv + ["--device", "cpu"]), j_exp.main(argv))
+
+
+@pytest.mark.parametrize("mesh", [KERSHAW, CART])
+@pytest.mark.parametrize("pc", ["gridmg", "pbjacobi", "none"])
+def test_wave_implicit_driver_matches_jax(tmp_path, mesh, pc):
+    extra = ["--cfl", "10"] if pc == "none" and mesh is KERSHAW else []
+    argv = _args(tmp_path, mesh + ["--pc", pc] + extra, ntmax=2)
+    rt = t_imp.main(argv + ["--device", "cpu"])
+    _same(rt, j_imp.main(argv))
+    assert all(d["extras"][2] for d in rt.diagnostics)  # GMRES converged every step
+
+
+@pytest.mark.parametrize("pc,item", [("ilu0", "17"), ("bjacobi", "17"), ("blockfft", "12b"),
+                                     ("dctfft", "16"), ("circulant2l", "20"),
+                                     ("dct2l", "20"), ("dct2lm", "20"), ("aggvcycle", "19")])
+def test_unported_pc_raises_naming_its_item(tmp_path, pc, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, slice 2, item {item}"):
+        t_imp.main(_args(tmp_path, KERSHAW + ["--pc", pc, "--device", "cpu"]))
+
+
+def test_default_pc_is_ilu0_and_raises(tmp_path):
+    with pytest.raises(NotImplementedError, match="ILU"):
+        t_imp.main(_args(tmp_path, CART + ["--device", "cpu"]))
+
+
+@pytest.mark.parametrize("extra", [["--mesh-family", "kershawtet"], ["--shard", "slab"]])
+def test_wave_explicit_unported_options_raise(tmp_path, extra):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t_exp.main(_args(tmp_path, ["4", "4", "4", "--device", "cpu"] + extra))
+
+
+def test_kershaw_eps_option(tmp_path):
+    """The repaired --kershaw-eps: the JAX default, and passed to the mesh."""
+    jp = j_common.base_parser("x").parse_args([])
+    tp = t_common.base_parser("x").parse_args([])
+    assert tp.kershaw_eps == jp.kershaw_eps == 0.3
+    argv = ["--mesh-family", "kershaw", "5", "4", "3", "--kershaw-eps", "0.6"]
+    mj = j_common.build_mesh(j_common.base_parser("x").parse_args(argv))
+    mt = t_common.build_mesh(t_common.base_parser("x").parse_args(argv))
+    assert mt.name == mj.name == "kershaw_5x4x3"
+    np.testing.assert_allclose(mt.cell_volume, mj.cell_volume, rtol=1e-14)
+    mt3 = t_common.build_mesh(t_common.base_parser("x").parse_args(argv[:-1] + ["0.3"]))
+    assert np.abs(mt3.cell_volume - mt.cell_volume).max() > 1e-3 * mt.cell_volume.mean()
+
+
+@pytest.mark.parametrize("argv,name,shape", [
+    (["--mesh-family", "hexa", "4", "3", "2"], "hexa_4x3x2", (4, 3, 2)),
+    (["--mesh-family", "kershaw", "4"], "kershaw_4x4x4", (4, 4, 4)),
+    (["--mesh-family", "hexa", "5", "3"], "hexa_5x3x3", (5, 3, 3))])
+def test_build_mesh_families(argv, name, shape):
+    mj = j_common.build_mesh(j_common.base_parser("x").parse_args(argv))
+    mt = t_common.build_mesh(t_common.base_parser("x").parse_args(argv))
+    assert mt.name == mj.name == name and mt.topology_shape == mj.topology_shape == shape
+    assert mt.n_cells == mj.n_cells and mt.n_faces == mj.n_faces
+    np.testing.assert_allclose(mt.cell_volume, mj.cell_volume, rtol=1e-14)
+
+
+def test_make_output_cb_split_and_checkpoint(tmp_path):
+    """The repaired make_output_cb(split=...): the wave drivers pass their
+    model's split_fields, and a checkpoint holds the cell-major state that
+    the field-major loop unpacks."""
+    from circulantpreconditioner_tpu_torch.io import load_checkpoint
+
+    args = argparse.Namespace(vtk=False, med=False, result_dir=str(tmp_path),
+                              checkpoint_freq=1)
+    mesh = t_common.build_mesh(t_common.base_parser("x").parse_args(CART))
+    cb = t_common.make_output_cb(args, mesh, split=lambda U: (U, U), prefix="wave")
+    cb(1, 0.5, np.arange(4.0), [])
+    state, t, it, _ = load_checkpoint(str(tmp_path / "cartesian_8x8_ckpt.npz"))
+    assert it == 1 and t == 0.5 and np.array_equal(state, np.arange(4.0))
+    res = t_exp.main(_args(tmp_path, CART + ["--device", "cpu", "--checkpoint-freq", "1"]))
+    state, t, it, _ = load_checkpoint(str(tmp_path / "cartesian_8x8_ckpt.npz"))
+    assert it == res.iterations and np.array_equal(state, res.state.numpy())
+    args.vtk = True
+    with pytest.raises(NotImplementedError, match="item 23b"):
+        t_common.make_output_cb(args, mesh, split=lambda U: (U, U))
