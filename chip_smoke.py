@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's main paths, with kernels K1 and K2
+"""GPU smoke run of the PyTorch port's main paths, with kernels K1, K2 and K3
 checked and timed.
 
     python3 chip_smoke.py
@@ -18,8 +18,8 @@ Phases, one stdout line each (more for the drivers' own logs):
    states must agree with the direct cuFFT solve. Then the implicit driver at
    100³ with --pc circulant;
 6. times at 100³ of K1, its plain version, the dense, staged and cuFFT
-   solvers: CUDA events (warm-up, median of repeats) and the kernel time
-   from torch.profiler; each solve is held to bench.py's residual gate 1e-4.
+   solvers: CUDA events (warm-up, median of repeats), CUDA-graph replay for
+   K1 and its plain version, and the kernel time from torch.profiler; each solve is held to bench.py's residual gate 1e-4.
 7. K2 (csrc/plane_stencil.cu) against its plain version on Kershaw wave
    operators at (16,8,5), (5,4,6) and 64³, in float32 (max|y_K2 − y_plain|
    ≤ 1e-5 · max|y_plain|) and float64 (≤ 1e-12); the host build of the 64³
@@ -33,13 +33,40 @@ Phases, one stdout line each (more for the drivers' own logs):
    fine level (the launch count is checked against the iterations), and
    the state equals a plain-operator run to 1e-4 relative. Then --pc
    pbjacobi at Kershaw 16³;
-10. times at 64³: K2 and its plain version per apply (CUDA events and
-   torch.profiler kernel time, GB/s from the bytes an apply must move; K2
+10. times at 64³: K2 and its plain version per apply (CUDA events, CUDA-graph
+   replay and torch.profiler kernel time, GB/s from the bytes an apply must move; K2
    also with the L2 flushed before each apply), the device busy share of an
    explicit and of an implicit step, and the median wall time of the
-   drivers' explicit and implicit steps.
+   drivers' explicit and implicit steps; the same field-major operator as one
+   torch.sparse_csr_tensor product, the library yardstick of K2.
+11. K3 (csrc/complex_matmul.cu) against its plain version at (8320,128)·
+   (128,128), (5100,100)·(100,100) and a ragged (37,45)·(45,29): max|o_K3 −
+   o_plain| ≤ 1e-5 · max|o_plain| in float32, 1e-12 in float64;
+12. main path E: the staged DFT solve through K3, MatmulCirculantSolver(
+   use_kernel=True) at 128³ with velocity (1, 0.5, 0.25) and at the 100³
+   flagship λ: 4 K3 launches per solve, agreement with the einsum form to
+   1e-5 relative, ‖C x − b‖/‖b‖ < 1e-4; then 5 transport steps at 100³ through
+   run_time_loop with that solver, equal to the cuFFT solve's to 1e-5;
+13. main path F, the FFT projection preconditioners: wave_implicit --pc
+   dct2lm at Kershaw 64³, 2 steps (every step converges, K2's launches match
+   the iterations, the state equals a plain-operator run to 1e-4); --pc
+   circulant2l and dct2l at Kershaw 16³; --pc dctfft at wall 64³ and --pc
+   blockfft --periodic at 64³, 20 steps each, with the residual of one
+   direct step; transport_implicit --mesh-family kershaw 32³ --pc circulant,
+   2 steps. The host build of the 64³ projection is timed on its own line;
+14. times: K3 per call and per solve against its plain version and one
+   complex64 torch.matmul (cuBLAS), by CUDA events, CUDA-graph replay and
+   torch.profiler (with the launches it recorded), with the bound; the dct2lm step's wall
+   and device busy share at 64³; one preconditioner apply split into P, the
+   DCT solve, P_back and the smoother; the periodic coarse solves of the
+   projection PCs (block 64³, scalar 32³) by torch.fft, their default, and
+   by the staged DFT (use_matmul_dft=True, the JAX package's default).
 
-Then one JSON line on the kernels, and as the last line
+Then one JSON line on the kernels (`ms`, `plain_ms` and `library_ms` are device
+time per call by CUDA-graph replay, `events_ms` the CUDA-event time of calls
+enqueued one by one; `bound_ms` is the least time of the function each kernel
+computes, by its cheapest known algorithm, and `algorithm_bound_ms` that of the
+kernel's own algorithm), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero without that line.
 """
@@ -50,6 +77,9 @@ import json
 import subprocess
 import sys
 import tempfile
+import time
+
+T_START = time.perf_counter()
 
 import numpy as np
 import torch
@@ -59,6 +89,50 @@ TOL_KERNEL = 1e-5  # max|x_kernel − x_plain| / max|x_plain|
 TOL_RESIDUAL = 1e-4  # bench.py's residual gate
 NW = 64  # the Kershaw grid bench_suite.py measures the wave system at
 TOL_K2 = {torch.float32: 1e-5, torch.float64: 1e-12}  # max|y_K2 − y_plain| / max|y_plain|
+TOL_K3 = TOL_K2  # max|o_K3 − o_plain| / max|o_plain|
+PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least ms the card could take, what bounds it): the larger of the
+    operations over the fp32 peak and the bytes over the memory rate."""
+    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def graph_ms(fn, calls: int = 20, repeats: int = 7) -> float:
+    """Device ms per call with no launch gaps: `calls` calls captured in one
+    CUDA graph, replayed under CUDA events, median of `repeats` replays. For
+    kernels of tens of µs, where the host's enqueue time hides the kernel
+    from CUDA events and a short profiler window can drop or add records."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the default stream, as capture requires
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return float(np.median([time_ms(graph.replay, 1) / calls for _ in range(repeats)]))
+
+
+def median_ms(runs: dict, calls: int = 20, repeats: int = 7) -> dict[str, float]:
+    """CUDA-event ms per call of each run: the median of `repeats` timings of
+    `calls` calls, interleaved so that drift falls on every run alike."""
+    for fn in runs.values():  # warm-up
+        for _ in range(5):
+            fn()
+    torch.cuda.synchronize()
+    samples: dict[str, list[float]] = {name: [] for name in runs}
+    for _ in range(repeats):
+        for name, fn in runs.items():
+            samples[name].append(time_ms(fn, calls))
+    return {name: float(np.median(v)) for name, v in samples.items()}
 
 
 class SmokeFailure(RuntimeError):
@@ -80,7 +154,14 @@ def rel_residual(op, x, b) -> float:
     return (torch.linalg.norm(op.matvec(x) - b) / torch.linalg.norm(b)).item()
 
 
-def device_profile(fn, calls: int = 20) -> dict[str, float]:
+class Profile(dict):
+    """Device ms per call by kernel name; `counts` holds the launches the
+    profiler recorded for each name."""
+
+    counts: dict[str, int]
+
+
+def device_profile(fn, calls: int = 20) -> Profile:
     """Device ms per call by kernel name, from torch.profiler: kernels and
     copies only (an `aten::` op would count its kernels a second time)."""
     from torch.profiler import ProfilerActivity, profile
@@ -90,8 +171,11 @@ def device_profile(fn, calls: int = 20) -> dict[str, float]:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    return {e.key: e.self_device_time_total / 1e3 / calls for e in prof.key_averages()
-            if not e.key.startswith("aten::") and e.self_device_time_total > 0}
+    events = [e for e in prof.key_averages()
+              if not e.key.startswith("aten::") and e.self_device_time_total > 0]
+    out = Profile({e.key: e.self_device_time_total / 1e3 / calls for e in events})
+    out.counts = {e.key: e.count for e in events}
+    return out
 
 
 def device_ms(fn, calls: int = 20) -> float:
@@ -288,15 +372,8 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
     Wn = mi.normal_operator
     g = torch.as_tensor(rng.random((4, NW**3)), device=dev, dtype=torch.float32)
     runs = {"K2": lambda: plane_stencil_cuda(Wn, g), "K2 plain": lambda: Wn.matvec_fm(g)}
-    for fn in runs.values():  # warm-up
-        for _ in range(5):
-            fn()
-    torch.cuda.synchronize()
-    samples: dict[str, list[float]] = {name: [] for name in runs}
-    for _ in range(7):  # interleaved repeats
-        for name, fn in runs.items():
-            samples[name].append(time_ms(fn, calls=50))
-    ms = {name: float(np.median(v)) for name, v in samples.items()}
+    ms = median_ms(runs, calls=50)
+    gms = {name: graph_ms(fn, calls=50) for name, fn in runs.items()}
     kernel_ms = {name: device_ms(fn, calls=50) for name, fn in runs.items()}
     nbytes = (4 + 16 + 6 + 18 + 4) * 4 * NW**3  # x, diag, s, n̂, y in float32
     print(f"[10 times] Kershaw {NW}^3 float32, one apply of D moves {nbytes / 1e6:.1f} MB; "
@@ -304,8 +381,8 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
           f"kernel time: torch.profiler over 50 applies; on {smi}:", flush=True)
     for name in runs:
         print(f"[10 times]   {name}: {ms[name]:.4f} ms/apply, kernel time "
-              f"{kernel_ms[name]:.4f} ms/apply = {nbytes / kernel_ms[name] / 1e6:.1f} GB/s",
-              flush=True)
+              f"{kernel_ms[name]:.4f} ms/apply = {nbytes / kernel_ms[name] / 1e6:.1f} GB/s, "
+              f"CUDA-graph replay {gms[name]:.4f} ms/apply", flush=True)
     # the same with the L2 flushed before each apply (a 256 MB write): the
     # 50 MB working set fits the 50 MB L2 when K2 runs back to back, but the
     # main path's other work evicts it between applies
@@ -348,13 +425,378 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
           f"{np.median(res_e.step_seconds) * 1e3:.4f} ms; implicit step (wave_implicit "
           f"--pc gridmg, 2 steps): median {np.median(res_i.step_seconds) * 1e3:.3f} ms",
           flush=True)
+    # K2's library yardstick: the same field-major operator as one CSR
+    # product (cuSPARSE), the cell-major BSR permuted to field-major order
+    import scipy.sparse as sp
+
+    N = NW**3
+    perm = (np.arange(N)[None, :] * 4 + np.arange(4)[:, None]).reshape(-1)  # fm → cm index
+    A = sp.csr_matrix(mi.divergence.to_scipy()[perm][:, perm])
+    A_t = torch.sparse_csr_tensor(torch.as_tensor(A.indptr), torch.as_tensor(A.indices),
+                                  torch.as_tensor(A.data, dtype=torch.float32),
+                                  size=A.shape, device=dev)
+    x = g.reshape(-1)
+    y_lib = A_t @ x
+    lib_rel = ((y_lib - Wn.matvec_fm_flat(x)).abs().max() / y_lib.abs().max()).item()
+    check(lib_rel <= 1e-5, f"the CSR yardstick disagrees with K2's plain version: {lib_rel:.3e}")
+    lib = median_ms({"csr": lambda: A_t @ x}, calls=50)["csr"]
+    lib_graph = graph_ms(lambda: A_t @ x, calls=50)
+    lib_kernel = device_ms(lambda: A_t @ x, calls=50)
+    k2_bound, k2_by = bound(N * (2 * 4 * 4 + 6 * 20), nbytes)
+    print(f"[10 times]   library yardstick, torch.sparse_csr_tensor @ x ({A.nnz} stored "
+          f"entries): {lib:.4f} ms/apply, kernel time {lib_kernel:.4f} ms/apply, "
+          f"CUDA-graph replay {lib_graph:.4f} ms/apply "
+          f"(agrees with the plain version to {lib_rel:.1e}); K2's bound {k2_bound:.4f} ms "
+          f"({k2_by})", flush=True)
     # "launches" counts the two main paths at NW^3; each count was reset
     # before its own driver run and checked after it
     return {"launches": k2_e + k2_i,
             "launches_by_path": {f"C wave_explicit {NW}^3": k2_e,
                                  f"D wave_implicit gridmg {NW}^3": k2_i,
                                  "wave_implicit pbjacobi 16^3": k2_p},
-            "max_abs_err": k2_err, "ms": ms["K2"], "plain_ms": ms["K2 plain"]}
+            "max_abs_err": k2_err, "ms": gms["K2"], "plain_ms": gms["K2 plain"],
+            "events_ms": ms["K2"], "bound_ms": k2_bound, "bound_by": k2_by,
+            "algorithm_bound_ms": k2_bound, "library_ms": lib_graph}, mesh, mi
+
+
+def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
+    """Phases 11 to 14: kernel K3, main path E (the staged DFT solve through
+    K3) and main path F (the FFT projection preconditioners). mesh64 and mi
+    are the Kershaw NW^3 mesh and implicit wave model of phases 7 to 10.
+    Returns K3's entry of the kernels line."""
+    import functools
+    import time
+
+    from circulantpreconditioner_tpu_torch.drivers import transport_implicit, wave_implicit
+    from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh
+    from circulantpreconditioner_tpu_torch.models import (
+        TransportEquation,
+        WaveSystem,
+        run_time_loop,
+    )
+    from circulantpreconditioner_tpu_torch.models.transport import _direct_step, _identity_plus
+    from circulantpreconditioner_tpu_torch.ops.assembly import wave_block_stencil
+    from circulantpreconditioner_tpu_torch.ops.circulant import (
+        BlockCirculantOperator,
+        CirculantTransportOperator,
+    )
+    from circulantpreconditioner_tpu_torch.ops.complex_matmul import (
+        ComplexMatmulKernel,
+        complex_matmul_cuda,
+        complex_matmul_reference,
+    )
+    from circulantpreconditioner_tpu_torch.ops.dft_matmul import (
+        MatmulBlockCirculantSolver,
+        MatmulCirculantSolver,
+    )
+    from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+    from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+    from circulantpreconditioner_tpu_torch.solvers.circulant_pc import (
+        DCTBlockProjectionPC,
+        _try_window,
+        build_projection_matrices,
+        derive_grid_context,
+    )
+
+    f32 = dict(device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(11)
+
+    def planes(shape, dtype):
+        return [torch.as_tensor(rng.standard_normal(shape), device=dev, dtype=dtype)
+                for _ in range(2)]
+
+    # --- 11: K3 against its plain version ----------------------------------
+    k3_shapes = {"128^3 stage": (8320, 128, 128), "100^3 stage": (5100, 100, 100),
+                 "ragged": (37, 45, 29)}
+    k3_err = 0.0
+    for dtype in (torch.float32, torch.float64):
+        for label, (M, K, Nn) in k3_shapes.items():
+            a, b = planes((M, K), dtype), planes((K, Nn), dtype)
+            o = complex_matmul_cuda(*a, *b)
+            torch.cuda.synchronize()
+            p = complex_matmul_reference(*a, *b)
+            err = max((o[i] - p[i]).abs().max().item() for i in range(2))
+            rel = err / max(p[i].abs().max().item() for i in range(2))
+            print(f"[11 K3 vs plain] {label} ({M},{K})·({K},{Nn}) {str(dtype)[6:]}: "
+                  f"max|do|/max|o| {rel:.3e} (tol {TOL_K3[dtype]:g})", flush=True)
+            check(bool(torch.isfinite(o[0]).all() and torch.isfinite(o[1]).all())
+                  and rel <= TOL_K3[dtype], f"K3 disagrees with its plain version at "
+                  f"{label} {dtype}: {rel:.3e}")
+            if dtype == torch.float32:
+                k3_err = max(k3_err, err)
+
+    # --- 12: main path E, the staged DFT solve through K3 --------------------
+    h = 1.0 / 128
+    a_xyz = np.array([1.0, 0.5, 0.25])
+    dt128 = (1e3 / 3) * (h / 6) / np.linalg.norm(a_xyz)
+    configs = {"128^3 a=(1,0.5,0.25)": ((128,) * 3, tuple(a_xyz[::-1] * dt128 / h)),
+               "100^3 flagship": ((N,) * 3, flagship_lambdas())}
+    solvers, k3_solves = {}, 0
+    for label, (shape, lams) in configs.items():
+        sk = MatmulCirculantSolver.create(shape, lams, use_kernel=True, **f32)
+        se = MatmulCirculantSolver.create(shape, lams, **f32)
+        op = CirculantTransportOperator.create(shape, lams, **f32)
+        b = torch.as_tensor((rng.random(shape) * 50 + 600).astype(np.float32), device=dev)
+        before = ComplexMatmulKernel.launches
+        xk = sk.solve(b)
+        torch.cuda.synchronize()
+        per_solve = ComplexMatmulKernel.launches - before
+        k3_solves += per_solve
+        xe = se.solve(b)
+        rel = ((xk - xe).abs().max() / xe.abs().max()).item()
+        res = rel_residual(op, xk, b)
+        print(f"[12 main path E] {label}: K3 launches per solve {per_solve}, "
+              f"max|x_K3 - x_einsum|/max|x| {rel:.3e} (tol 1e-5), ||Cx-b||/||b|| {res:.3e} "
+              f"(tol {TOL_RESIDUAL:g})", flush=True)
+        check(per_solve == 4, f"path E at {label}: {per_solve} K3 launches per solve")
+        check(rel <= 1e-5 and res < TOL_RESIDUAL, f"path E at {label}: {rel:.3e}, {res:.3e}")
+        solvers[label] = (sk, se, b)
+    mesh = cartesian_mesh(((-0.5, 0.5),) * 3, (N, N, N), periodic=True)
+    model = TransportEquation(mesh, (1.0, 0.0, 0.0), cfl=1e3 / 3, **f32)
+    op = model.fft_operator
+    sk = MatmulCirculantSolver.create(op.shape_zyx, op.lambdas_zyx, use_kernel=True, **f32)
+    u0 = model.initial_state()
+    ComplexMatmulKernel.launches = 0
+    res_e = run_time_loop(functools.partial(_direct_step, sk), u0, model.dt, tmax=1e9, ntmax=5,
+                          log=None)
+    k3_steps = ComplexMatmulKernel.launches
+    u_ref = u0
+    fft_step = model.fft_stepper("fft")
+    for _ in range(5):
+        u_ref, _ = fft_step(u_ref)
+    dev_e = ((res_e.state - u_ref).abs().max() / u_ref.abs().max()).item()
+    print(f"[12 main path E] 5 transport steps at 100^3 through run_time_loop: K3 launches "
+          f"{k3_steps}, ms/step {[round(t * 1e3, 3) for t in res_e.step_seconds]}, "
+          f"max|u_K3 - u_cuFFT|/max|u| {dev_e:.3e} (tol 1e-5)", flush=True)
+    check(res_e.iterations == 5 and k3_steps == 20, f"path E steps: {res_e.iterations} steps, "
+          f"{k3_steps} K3 launches")
+    check(bool(torch.isfinite(res_e.state).all()) and dev_e <= 1e-5,
+          f"path E disagrees with the cuFFT solve: {dev_e:.3e}")
+
+    # --- 13: main path F, the FFT projection preconditioners ---------------
+    host = {}
+    n_xyz, _, _, bbox = derive_grid_context(mesh64, [0.0] * 3, mi.dt)
+    t0 = time.perf_counter()
+    P, P_back = build_projection_matrices(mesh64, n_xyz, bbox, **f32)
+    host["cKDTree sampling, P and P_back"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    windows = _try_window(P), _try_window(P_back)
+    host["their windows"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coarse = DCTBlockProjectionPC(mesh64, mi.dt, mi.c0, **f32)
+    torch.cuda.synchronize()
+    host["the whole DCT projection PC"] = time.perf_counter() - t0
+    print(f"[host build] Kershaw {NW}^3 projection, seconds: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in host.items())
+          + f"; projection {coarse.projection}, grid {coarse.n_xyz}, P {tuple(P.shape)} with "
+          f"{P.indices.numel()} entries, windows of "
+          f"{[w.window_bytes / 2**20 if w is not None else None for w in windows]} MiB",
+          flush=True)
+    JAX_RECORDS = {"dct2lm 64^3": "108 (PROFILE.md:199)",
+                   "circulant2l 16^3": "62 (results/bench_suite_r05.json:155)",
+                   "dct2l 16^3": "43 (results/bench_suite_r05.json:153)"}
+    k3_by_path = {"E transport 100^3, 5 steps": k3_steps,
+                  "E single solves at 128^3 and 100^3": k3_solves}
+    with tempfile.TemporaryDirectory() as out_dir:
+        common = ["--tmax", "1e9", "--device", "cuda", "--result-dir", out_dir]
+        kershaw = ["--mesh-family", "kershaw"]
+        PlaneStencilMatvec.launches = 0
+        t0 = time.perf_counter()
+        res_f = wave_implicit.main(kershaw + [str(NW)] * 3 + common
+                                   + ["--ntmax", "2", "--pc", "dct2lm"])
+        torch.cuda.synchronize()
+        wall_f = time.perf_counter() - t0
+        k2_f = PlaneStencilMatvec.launches
+        its = [d["extras"][0] for d in res_f.diagnostics]
+        conv = [d["extras"][2] for d in res_f.diagnostics]
+        expected = k2_expected_launches(its, pc_fine_applies=1)
+        print(f"[13 main path F] wave_implicit Kershaw {NW}^3 --pc dct2lm: iterations {its} "
+              f"(the JAX package's record on its TPU: {JAX_RECORDS['dct2lm 64^3']}), converged "
+              f"{conv}, K2 launches {k2_f} (expected {expected}: a matvec per iteration and "
+              f"per restart, one more in every multiplicative apply), ms/step "
+              f"{[round(t * 1e3, 3) for t in res_f.step_seconds]}, driver wall {wall_f:.2f} s",
+              flush=True)
+        check(len(its) == 2 and all(conv), f"dct2lm: iterations {its}, converged {conv}")
+        check(k2_f == expected, f"dct2lm: {k2_f} K2 launches, expected {expected}")
+        check(bool(torch.isfinite(res_f.state).all()), "dct2lm: non-finite state")
+        Wi = mi.normal_operator
+        A_plain = functools.partial(_identity_plus, Wi.matvec_fm_flat)
+        pj_fm = pcs.pbjacobi_fm(mi.divergence, shift=1.0)
+        adapter = pcs.cell_major_adapter(coarse.apply, mi.nb)
+        solver = make_gmres(A_plain, pcs.multiplicative(A_plain, adapter, pj_fm), side="right")
+        G = mi.pack_fm(mi.initial_state()).reshape(-1)
+        its_plain = []
+        for _ in range(2):
+            r = solver(G, G)
+            check(r.converged, "the plain-operator dct2lm step did not converge")
+            G = r.x
+            its_plain.append(r.iters)
+        U_ref = mi.unpack_fm(G)
+        dev_f = ((res_f.state - U_ref).abs().max() / U_ref.abs().max()).item()
+        print(f"[13 main path F] plain-operator run: iterations {its_plain}; max|U - U_plain|/"
+              f"max|U_plain| {dev_f:.3e} (tol 1e-4)", flush=True)
+        check(dev_f <= 1e-4, f"dct2lm disagrees with the plain operator: {dev_f:.3e}")
+        k2_by_path = {f"F wave_implicit dct2lm {NW}^3": k2_f}
+
+        for pc in ("circulant2l", "dct2l"):
+            PlaneStencilMatvec.launches = 0
+            res = wave_implicit.main(kershaw + ["16"] * 3 + common + ["--ntmax", "2", "--pc", pc])
+            its_pc = [d["extras"][0] for d in res.diagnostics]
+            conv_pc = [d["extras"][2] for d in res.diagnostics]
+            k2_pc = PlaneStencilMatvec.launches
+            print(f"[13 driver] wave_implicit Kershaw 16^3 --pc {pc}: iterations {its_pc} (the "
+                  f"JAX package's record on its TPU: {JAX_RECORDS[pc + ' 16^3']}), converged "
+                  f"{conv_pc}, K2 launches {k2_pc}", flush=True)
+            check(len(its_pc) == 2 and all(conv_pc) and bool(torch.isfinite(res.state).all()),
+                  f"{pc}: iterations {its_pc}, converged {conv_pc}")
+            check(k2_pc == k2_expected_launches(its_pc, 0), f"{pc}: {k2_pc} K2 launches")
+            k2_by_path[f"wave_implicit {pc} 16^3"] = k2_pc
+
+        for pc, extra in (("dctfft", []), ("blockfft", ["--periodic"])):
+            t0 = time.perf_counter()
+            res = wave_implicit.main([str(NW)] * 3 + extra + common
+                                     + ["--ntmax", "20", "--pc", pc])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            wm = WaveSystem(cartesian_mesh(((-0.5, 0.5),) * 3, (NW,) * 3,
+                                           periodic=bool(extra)), cfl=1e3 / 3, **f32)
+            U0 = wm.initial_state()
+            U1 = (wm.unpack_fm(wm.dct_fft_stepper_fm()(wm.pack_fm(U0))[0]) if pc == "dctfft"
+                  else wm.block_fft_stepper()(U0)[0])
+            res1 = (torch.linalg.norm(wm.implicit_matvec()(U1) - U0)
+                    / torch.linalg.norm(U0)).item()
+            print(f"[13 driver] wave_implicit {NW}^3 --pc {pc} {' '.join(extra)}: "
+                  f"{res.iterations} steps (stationary {res.stationary}), median "
+                  f"{np.median(res.step_seconds) * 1e3:.3f} "
+                  f"ms/step, driver wall {wall:.2f} s; one direct step ||(I+D)U1 - U0||/||U0|| "
+                  f"{res1:.3e} (tol {TOL_RESIDUAL:g})", flush=True)
+            # the loop stops early once the state is stationary (‖dU‖ < 1e-5)
+            check((res.iterations == 20 or res.stationary) and bool(torch.isfinite(res.state).all())
+                  and res1 < TOL_RESIDUAL, f"{pc}: {res.iterations} steps, residual {res1:.3e}")
+
+        res = transport_implicit.main(kershaw + ["32"] * 3 + common
+                                      + ["--ntmax", "2", "--pc", "circulant"])
+        its_t = [d["extras"][0] for d in res.diagnostics]
+        conv_t = [d["extras"][2] for d in res.diagnostics]
+        print(f"[13 driver] transport_implicit Kershaw 32^3 --pc circulant: iterations {its_t}, "
+              f"converged {conv_t}, ms/step {[round(t * 1e3, 3) for t in res.step_seconds]}",
+              flush=True)
+        check(len(its_t) == 2 and all(conv_t) and bool(torch.isfinite(res.state).all()),
+              f"transport_implicit kershaw circulant: iterations {its_t}, converged {conv_t}")
+
+    # --- 14: times ----------------------------------------------------------
+    print(f"[14 times] CUDA events: median of 7 x 20 calls; kernel time: torch.profiler over "
+          f"20 calls; on {smi}:", flush=True)
+    k3_json = {}
+    for label in ("128^3 stage", "100^3 stage"):
+        M, K, Nn = k3_shapes[label]
+        a, b = planes((M, K), torch.float32), planes((K, Nn), torch.float32)
+        ac, bc = torch.complex(*a), torch.complex(*b)
+        runs = {"K3": lambda: complex_matmul_cuda(*a, *b),
+                "K3 plain (4 torch.matmul)": lambda: complex_matmul_reference(*a, *b),
+                "library (complex64 torch.matmul)": lambda: ac @ bc}
+        ms = median_ms(runs)
+        gms = {name: graph_ms(fn) for name, fn in runs.items()}
+        profs = {name: device_profile(fn) for name, fn in runs.items()}
+        # the complex product needs 3 real products (Gauss's form, as in
+        # cgemm3m): 6·M·K·N flops; K3 does the 4 of the direct form, 8·M·K·N
+        flops = 8.0 * M * K * Nn
+        nbytes = 4.0 * 2 * (M * K + K * Nn + M * Nn)
+        b_ms, b_by = bound(6.0 * M * K * Nn, nbytes)
+        alg_ms, _ = bound(flops, nbytes)
+        print(f"[14 times] K3 per call at {label} ({M},{K})·({K},{Nn}), float32: bound "
+              f"{b_ms:.4f} ms ({b_by}: {6.0 * M * K * Nn / 1e9:.3f} GFLOP in 3 real products, "
+              f"{nbytes / 1e6:.1f} MB); the direct form's 4 products, as K3 does them: "
+              f"{alg_ms:.4f} ms ({flops / 1e9:.3f} GFLOP); TFLOP/s below count the 4; {smi}",
+              flush=True)
+        for name in runs:
+            kms = sum(profs[name].values())
+            print(f"[14 times]   {name}: {ms[name]:.4f} ms/call by CUDA events, "
+                  f"{gms[name]:.4f} ms/call by CUDA-graph replay = "
+                  f"{flops / gms[name] / 1e9:.2f} TFLOP/s; profiler {kms:.4f} ms/call over "
+                  f"20 calls ({', '.join(f'{k[:24]} x{n}' for k, n in profs[name].counts.items())})"
+                  f"; {smi}", flush=True)
+        if label == "128^3 stage":
+            k3_json = {"ms": gms["K3"], "plain_ms": gms["K3 plain (4 torch.matmul)"],
+                       "library_ms": gms["library (complex64 torch.matmul)"],
+                       "events_ms": ms["K3"],
+                       "bound_ms": b_ms, "bound_by": b_by, "algorithm_bound_ms": alg_ms}
+    for label, (sk, se, b) in solvers.items():
+        runs = {"use_kernel=True (K3)": lambda: sk.solve(b), "einsum": lambda: se.solve(b)}
+        ms = median_ms(runs)
+        gms = {name: graph_ms(fn) for name, fn in runs.items()}
+        kms = {name: device_ms(fn) for name, fn in runs.items()}
+        print(f"[14 times] staged solve at {label}: "
+              + "; ".join(f"{n} {ms[n]:.4f} ms/solve by events, {gms[n]:.4f} by graph replay, "
+                          f"profiler {kms[n]:.4f}" for n in runs)
+              + f"; {smi}", flush=True)
+
+    # the dct2lm step at NW^3 in a tight loop, and one preconditioner apply
+    A_k2 = mi.implicit_matvec_fm()
+    M_k2 = pcs.multiplicative(A_k2, adapter, pj_fm)
+    step = mi.implicit_stepper_fm(M_fm=M_k2, side="right")
+    G0 = mi.pack_fm(mi.initial_state()).reshape(-1)
+    step(G0)  # warm-up
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(G0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    prof = device_profile(lambda: step(G0), calls=2)
+    busy, wall = sum(prof.values()), float(np.median(walls))
+    top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
+    print(f"[14 busy] dct2lm step at {NW}^3 (first step): wall {wall:.3f} ms (median of 3), "
+          f"device {busy:.3f} ms/step, busy {100 * busy / wall:.1f} %; largest: "
+          + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top) + f"; {smi}", flush=True)
+    r = torch.as_tensor(rng.standard_normal(4 * NW**3), device=dev, dtype=torch.float32)
+    rc = r.reshape(4, -1).T.reshape(-1)
+    Pw, Pbw = coarse.apply.args[0], coarse.apply.args[2]  # window or CSR forms
+    project = lambda Pm, v: (Pm.matvec_multi(v) if hasattr(Pm, "matvec_multi")  # noqa: E731
+                             else Pm.matvec(v))
+    x_cart = project(Pw, rc.reshape(-1, 4)).reshape(-1)
+    parts = {"P (4 components)": lambda: project(Pw, rc.reshape(-1, 4)),
+             "DCT solve": lambda: coarse.op.solve(x_cart),
+             "P_back": lambda: project(Pbw, x_cart.reshape(-1, 4)),
+             "smoother (pbjacobi_fm)": lambda: pj_fm(r),
+             "operator apply (K2)": lambda: A_k2(r),
+             "whole apply (multiplicative)": lambda: M_k2(r)}
+    ms = median_ms(parts)
+    kms = {name: device_ms(fn) for name, fn in parts.items()}
+    print(f"[14 times] one dct2lm preconditioner apply at {NW}^3 ({coarse.projection}), by part: "
+          + "; ".join(f"{n} {ms[n]:.4f} ms (kernel {kms[n]:.4f})" for n in parts)
+          + f"; {smi}", flush=True)
+
+    # the periodic coarse solves of the projection PCs, in the two forms
+    # their use_matmul_dft argument selects, on the grids derived from the
+    # Kershaw meshes of path F (64^3 wave, 4 components; 32^3 transport at
+    # cfl 1e3/3, a = (1,0,0): λ_x = cfl/6)
+    n_xyz, spacing, _, _ = derive_grid_context(mesh64, [0.0] * 3, mi.dt)
+    offsets, blocks = wave_block_stencil(3, mi.dt, mi.c0, spacing)
+    g_zyx = tuple(reversed(n_xyz))
+    op32 = CirculantTransportOperator.create((32,) * 3, (0.0, 0.0, 1e3 / 18), **f32)
+    forms = {
+        f"block {NW}^3": (BlockCirculantOperator.from_stencil(g_zyx, offsets, blocks, **f32),
+                          MatmulBlockCirculantSolver.from_stencil(g_zyx, offsets, blocks,
+                                                                  precision="high", **f32),
+                          torch.randn(4 * NW**3, **f32)),
+        "scalar 32^3": (op32, MatmulCirculantSolver.from_operator(op32),
+                        torch.randn(32, 32, 32, **f32))}
+    for label, (op_fft, op_dft, r) in forms.items():
+        x_f, x_d = op_fft.solve(r), op_dft.solve(r)
+        rel = ((x_f - x_d).abs().max() / x_f.abs().max()).item()
+        check(rel <= 1e-4, f"the coarse solve forms disagree at {label}: {rel:.3e}")
+        runs = {"torch.fft (default)": lambda: op_fft.solve(r),
+                "staged DFT (use_matmul_dft=True)": lambda: op_dft.solve(r)}
+        ms = median_ms(runs)
+        gms = {name: graph_ms(fn) for name, fn in runs.items()}
+        print(f"[14 times] projection PC coarse solve, {label}, float32 (forms agree to "
+              f"{rel:.1e}): " + "; ".join(f"{n} {ms[n]:.4f} ms by events, {gms[n]:.4f} by graph "
+                                          f"replay" for n in runs) + f"; {smi}", flush=True)
+    return {"launches": k3_steps, "launches_by_path": k3_by_path, "max_abs_err": k3_err,
+            **k3_json, "k2_launches_by_path": k2_by_path}
 
 
 def main() -> int:
@@ -387,9 +829,13 @@ def main() -> int:
     print(f"[1 device] {kind} | nvidia-smi: {smi} | torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
-    _, build_s = build.build(force=True)
+    lib_path, build_s = build.build(force=True)
     build.load_library()
-    print(f"[2 build] K1 and K2 built from csrc/ in {build_s:.2f} s", flush=True)
+    print(f"[2 build] K1, K2 and K3 built from csrc/ in {build_s:.2f} s", flush=True)
+    ptxas = lib_path.with_suffix(".log").read_text().splitlines()
+    for i, line in enumerate(ptxas):  # K3's register and shared-memory report
+        if "Compiling entry function" in line and "k3_cmm" in line:
+            print("[2 build] " + " | ".join(x.strip() for x in ptxas[i:i + 4]), flush=True)
 
     # --- 3: K1 against its plain version ---------------------------------
     rng = np.random.default_rng(1)
@@ -490,15 +936,9 @@ def main() -> int:
         "cuFFT CirculantTransportOperator": lambda: op.solve(b),
     }
     residuals = {name: rel_residual(op, fn(), b) for name, fn in runs.items()}
-    for fn in runs.values():  # warm-up
-        for _ in range(5):
-            fn()
-    torch.cuda.synchronize()
-    samples: dict[str, list[float]] = {name: [] for name in runs}
-    for _ in range(7):  # interleaved repeats, so drift falls on every solver alike
-        for name, fn in runs.items():
-            samples[name].append(time_ms(fn))
-    ms = {name: float(np.median(v)) for name, v in samples.items()}
+    ms = median_ms(runs)
+    k1_graph = {name: graph_ms(runs[name]) for name in ("K1 (fused CUDA)",
+                                                         "K1 plain (torch.matmul)")}
     kernel_ms = {name: device_ms(fn) for name, fn in runs.items()}
     # CUDA-event time covers the stream including gaps, so it reads the
     # host's enqueue rate when a solver launches many small kernels
@@ -509,8 +949,29 @@ def main() -> int:
               f"kernel time {kernel_ms[name]:.4f} ms/solve, residual {residuals[name]:.3e}",
               flush=True)
         check(residuals[name] < TOL_RESIDUAL, f"{name}: residual {residuals[name]:.3e}")
+    print("[6 times] by CUDA-graph replay of 20 solves (no launch gaps): "
+          + "; ".join(f"{n} {v:.4f} ms/solve" for n, v in k1_graph.items()) + f"; {smi}",
+          flush=True)
 
-    k2 = wave_phases(dev, smi)
+    # K1's least time for its function, x = C⁻¹b: b in, 1/Λ (re, im) in and
+    # x out over the memory rate, or the FFT form's operations (a real 3D
+    # FFT each way at 2.5·n·log2(n) flops, one complex product per mode) over
+    # the fp32 peak; beside it, the bound of K1's own algorithm, the six
+    # dense DFT stages' FMA work
+    nxr = N // 2 + 1
+    k1_bytes = 4.0 * (2 * N**3 + 2 * N * N * nxr)
+    k1_fft_flops = 2 * 2.5 * N**3 * np.log2(N**3) + 6.0 * N * N * nxr
+    k1_dft_flops = 2 * (4.0 * N * N * N * nxr) + 2 * (8.0 * N * nxr * N * N) * 2
+    k1_bound, k1_by = bound(k1_fft_flops, k1_bytes)
+    k1_alg, _ = bound(k1_dft_flops, k1_bytes)
+    print(f"[6 times] K1 bound at 100^3: {k1_bound:.4f} ms ({k1_by}: {k1_bytes / 1e6:.2f} MB; "
+          f"the FFT form's {k1_fft_flops / 1e9:.3f} GFLOP); K1's dense-DFT algorithm "
+          f"{k1_alg:.4f} ms ({k1_dft_flops / 1e9:.2f} GFLOP); no single library call "
+          f"computes it (cuFFT's rfftn, divide, irfftn is the row above)", flush=True)
+
+    k2, mesh64, mi = wave_phases(dev, smi)
+    k3 = fft_pc_phases(dev, smi, mesh64, mi)
+    k2["launches_by_path"].update(k3.pop("k2_launches_by_path"))
 
     print(json.dumps({"kernels": [{
         "name": "fused_circulant_solve (K1)",
@@ -518,16 +979,29 @@ def main() -> int:
         "source": "circulantpreconditioner_tpu_torch/csrc/fused_circulant.cu",
         "replaces": "circulantpreconditioner_tpu/ops/fused_circulant.py:117",
         "launches": launches,
+        "launches_by_path": {"B GMRES + K1 preconditioner 100^3, 3 steps": launches},
         "max_abs_err": max_abs_err,
-        "ms": ms["K1 (fused CUDA)"],
-        "plain_ms": ms["K1 plain (torch.matmul)"],
+        "ms": k1_graph["K1 (fused CUDA)"],
+        "plain_ms": k1_graph["K1 plain (torch.matmul)"],
+        "events_ms": ms["K1 (fused CUDA)"],
+        "bound_ms": k1_bound,
+        "bound_by": k1_by,
+        "algorithm_bound_ms": k1_alg,
+        "library_ms": None,
     }, {
         "name": "plane_stencil_matvec (K2)",
         "route": "cuda",
         "source": "circulantpreconditioner_tpu_torch/csrc/plane_stencil.cu",
         "replaces": "circulantpreconditioner_tpu/ops/pallas_stencil.py:69",
         **k2,
+    }, {
+        "name": "complex_matmul (K3)",
+        "route": "cuda",
+        "source": "circulantpreconditioner_tpu_torch/csrc/complex_matmul.cu",
+        "replaces": "circulantpreconditioner_tpu/ops/pallas_kernels.py:33",
+        **k3,
     }]}))
+    print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(f"card: {smi}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))

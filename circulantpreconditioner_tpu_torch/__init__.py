@@ -10,9 +10,16 @@ GMRES. The fused 3D circulant solve runs in a hand-written CUDA kernel
 Slice 2: the wave system on cartesian, hexa and Kershaw grids, stepped
 explicitly or by GMRES with point-block Jacobi or the grid V-cycle
 preconditioner. Its field-major SpMV runs in a hand-written CUDA kernel
-(ops/plane_stencil.py, csrc/plane_stencil.cu). This package imports
-torch, numpy and scipy, never jax; the JAX package is the reference it is
-tested against (tests/test_torch_*.py).
+(ops/plane_stencil.py, csrc/plane_stencil.cu).
+
+Slice 3: the block-circulant and wall-boundary DCT/DST direct solves, the
+clustered-window SpMV, and the cartesian-projection FFT preconditioners for
+non-cartesian meshes (solvers/circulant_pc.py) in both implicit drivers. The
+staged DFT solver's complex y/z stages can run in a hand-written CUDA kernel
+(ops/complex_matmul.py, csrc/complex_matmul.cu).
+
+This package imports torch, numpy and scipy, never jax; the JAX package is
+the reference it is tested against (tests/test_torch_*.py).
 """
 
 __version__ = "0.1.0"
@@ -25,17 +32,21 @@ from circulantpreconditioner_tpu_torch.mesh import (  # noqa: F401
     kershaw_mesh,
 )
 from circulantpreconditioner_tpu_torch.ops import (  # noqa: F401
+    BlockCirculantOperator,
     BSRMatrix,
     CirculantTransportOperator,
     CSRMatrix,
+    DCTBlockWaveSolver,
     DenseCirculantSolver,
     FusedCirculantSolver,
     IdentitySolver,
+    MatmulBlockCirculantSolver,
     MatmulCirculantSolver,
     TransportStencilOperator,
     VaryingStencilOperator,
     WaveNormalStencilOperator,
     WaveStencilOperator,
+    WindowedBlockOperator,
     make_circulant_solver,
     make_plane_stencil_matvec,
 )

@@ -1,8 +1,12 @@
 """TransportEquation_SphericalExplosion implicit GMRES driver analog (PyTorch
-port): implicit transport solved with GMRES, per-solve wall time printed.
-Structured meshes only; --pc none|jacobi|circulant.
+port): implicit transport solved with GMRES, per-solve wall time printed;
+--pc none|jacobi|circulant. On a structured mesh --pc circulant is the
+circulant solve of the grid; on another mesh (hexa, Kershaw) it is the
+additive two-level PC: the circulant projection PC
+(solvers/circulant_pc.py) plus Jacobi, right-preconditioned.
 
     python -m circulantpreconditioner_tpu_torch.drivers.transport_implicit 100 100 100 --pc circulant
+    python -m circulantpreconditioner_tpu_torch.drivers.transport_implicit --mesh-family kershaw 32 32 32 --pc circulant
 """
 
 from __future__ import annotations
@@ -43,6 +47,17 @@ def main(argv=None):
 
         dinv = 1.0 / (model.divergence.diagonal() + 1.0)
         M = functools.partial(pcs._diag_apply, dinv)
+    elif args.pc == "circulant" and not mesh.is_structured:
+        from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+        from circulantpreconditioner_tpu_torch.solvers.circulant_pc import CirculantProjectionPC
+
+        # additive two-level: the projected circulant (rank-deficient alone)
+        # plus Jacobi, converging on the true residual
+        coarse = CirculantProjectionPC(mesh, model.velocity, model.dt, device=device,
+                                       dtype=dtype)
+        dinv = 1.0 / (model.divergence.diagonal() + 1.0)
+        M = pcs.additive(coarse.apply, functools.partial(pcs._diag_apply, dinv))
+        side = "right"
     elif args.pc == "circulant":
         # periodic grid: the exact inverse (1 GMRES iteration); wall/Neumann
         # grid: it differs from the operator only on the boundary-face layer

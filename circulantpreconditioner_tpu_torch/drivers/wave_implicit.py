@@ -1,14 +1,23 @@
 """WaveSystem_SphericalExplosion implicit driver analog (PyTorch port).
 
 Implicit (I + D)Uⁿ⁺¹ = Uⁿ by GMRES, cfl = 1e3/dim, tol 1e-5, maxits 1000.
-Ported preconditioners: none, pbjacobi, and gridmg (the geometric-Galerkin
-grid V-cycle, right-preconditioned, on meshes whose topology is a grid). On
-those meshes the loop runs field-major, and on the GPU its matvec, and the
-V-cycle's fine-level operator, is kernel K2. The default stays ilu0, as in
-the JAX driver; it and the other preconditioners raise NotImplementedError
-naming their ROADMAP.md item.
+Ported preconditioners:
 
-    python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit --mesh-family kershaw 64 64 64 --pc gridmg
+- none, pbjacobi;
+- gridmg: the geometric-Galerkin grid V-cycle (meshes whose topology is a grid);
+- circulant2l, dct2l: the additive two-level projection PCs, the periodic
+  block-circulant or the wall DCT/DST cartesian solve plus point-block
+  Jacobi; dct2lm: the multiplicative DCT two-level cycle;
+- blockfft, dctfft: the direct block-circulant (periodic cartesian grid) or
+  DCT/DST (wall cartesian grid) solve in place of GMRES.
+
+The two-level and grid PCs precondition from the right. Where the mesh has a
+gather-free stencil form the loop runs field-major, and on the GPU its
+matvec (and the V-cycle's fine level, and dct2lm's second operator apply) is
+kernel K2. The default stays ilu0, as in the JAX driver; it and the other
+preconditioners raise NotImplementedError naming their ROADMAP.md item.
+
+    python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit --mesh-family kershaw 64 64 64 --pc dct2lm
 """
 
 from __future__ import annotations
@@ -29,11 +38,6 @@ from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
 NOT_PORTED = {
     "ilu0": ("ILU(0)", "17"),
     "bjacobi": ("block-Jacobi ILU(0)", "17"),
-    "blockfft": ("the block-circulant direct solve", "12b"),
-    "dctfft": ("the DCT/DST direct solve", "16"),
-    "circulant2l": ("the block-circulant projection preconditioner", "20 (and 12b)"),
-    "dct2l": ("the DCT projection preconditioner", "20 (and 16)"),
-    "dct2lm": ("the DCT projection preconditioner", "20 (and 16)"),
     "aggvcycle": ("AggregationVCyclePC and the clustered-window SpMV", "19 (and 18)"),
 }
 
@@ -63,28 +67,21 @@ def main(argv=None):
     print(f"-- implicit wave: mesh {mesh.name} ({mesh.n_cells} cells), "
           f"dt={model.dt:.4g}, pc={args.pc}")
 
-    side = "right" if args.pc == "gridmg" else "left"
+    side = "right" if args.pc in ("circulant2l", "dct2l", "dct2lm", "gridmg") else "left"
     gmres_kw = dict(rtol=args.rtol, atol=args.atol, maxiter=args.maxits, side=side)
-    if args.pc == "gridmg":
-        if getattr(mesh, "topology_shape", None) is None:
-            raise ValueError("--pc gridmg needs a mesh whose topology is a grid")
-        from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
-
-        pc_obj = GridVCyclePC.from_grid_model(
-            model.divergence, mesh.topology_shape, A0_apply=model.implicit_matvec(),
-            A0_apply_fm=model.implicit_matvec_fm(), shift=1.0, dtype=dtype)
-        M_fm, make_M_cm = pc_obj.apply_fm, lambda: pc_obj.apply
-    elif args.pc == "pbjacobi":
-        M_fm = pcs.pbjacobi_fm(model.divergence, shift=1.0)
-        make_M_cm = lambda: pcs.pbjacobi(model.divergence, shift=1.0)  # noqa: E731
+    fm = False
+    if args.pc == "blockfft":
+        step = model.block_fft_stepper()  # direct solve, no GMRES
+    elif args.pc == "dctfft":
+        step, fm = model.dct_fft_stepper_fm(), True  # direct solve, no GMRES
     else:
-        M_fm, make_M_cm = None, lambda: None
-    # the field-major loop where the mesh has a gather-free stencil form; the
-    # cell-major preconditioner is built only in the fallback
-    step = model.implicit_stepper_fm(M_fm=M_fm, **gmres_kw)
-    fm = step is not None
-    if not fm:
-        step = model.implicit_stepper(M=make_M_cm(), **gmres_kw)
+        M_cm, M_fm, make_M_cm = _preconditioners(args, mesh, model, device, dtype)
+        # the field-major loop where the mesh has a gather-free stencil form;
+        # the cell-major preconditioner is built only in the fallback
+        step = model.implicit_stepper_fm(M_cm=M_cm, M_fm=M_fm, **gmres_kw)
+        fm = step is not None
+        if not fm:
+            step = model.implicit_stepper(M=make_M_cm(), **gmres_kw)
 
     U0 = model.initial_state()
     cb = make_output_cb(args, mesh, split=model.split_fields, prefix="wave")
@@ -105,6 +102,41 @@ def main(argv=None):
     if its:
         print(f"GMRES iterations per step: median {np.median(its):.0f}, max {np.max(its):.0f}")
     return res
+
+
+def _preconditioners(args, mesh, model, device, dtype):
+    """(M_cm, M_fm, make_M) for --pc: the cell-major and field-major terms
+    that implicit_stepper_fm adds up (either may be None), and a function that
+    makes the cell-major preconditioner for meshes without a field-major form."""
+    if args.pc == "none":
+        return None, None, lambda: None
+    if args.pc == "gridmg":
+        if getattr(mesh, "topology_shape", None) is None:
+            raise ValueError("--pc gridmg needs a mesh whose topology is a grid")
+        from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
+
+        pc_obj = GridVCyclePC.from_grid_model(
+            model.divergence, mesh.topology_shape, A0_apply=model.implicit_matvec(),
+            A0_apply_fm=model.implicit_matvec_fm(), shift=1.0, dtype=dtype)
+        return None, pc_obj.apply_fm, lambda: pc_obj.apply
+    pj_fm = pcs.pbjacobi_fm(model.divergence, shift=1.0)
+    make_pj = lambda: pcs.pbjacobi(model.divergence, shift=1.0)  # noqa: E731
+    if args.pc == "pbjacobi":
+        return None, pj_fm, make_pj
+    from circulantpreconditioner_tpu_torch.solvers.circulant_pc import (
+        BlockCirculantProjectionPC,
+        DCTBlockProjectionPC,
+    )
+
+    cls = BlockCirculantProjectionPC if args.pc == "circulant2l" else DCTBlockProjectionPC
+    coarse = cls(mesh, model.dt, model.c0, device=device, dtype=dtype)
+    if args.pc == "dct2lm":
+        A_fm = model.implicit_matvec_fm()
+        M_fm = (pcs.multiplicative(A_fm, pcs.cell_major_adapter(coarse.apply, model.nb), pj_fm)
+                if A_fm is not None else None)
+        return None, M_fm, lambda: pcs.multiplicative(model.implicit_matvec(), coarse.apply,
+                                                      make_pj())
+    return coarse.apply, pj_fm, lambda: pcs.additive(coarse.apply, make_pj())
 
 
 if __name__ == "__main__":

@@ -112,8 +112,10 @@ class TransportEquation:
             self.mesh.spacing, bc=bc)  # type: ignore[attr-defined]
 
     def divergence_op(self, operator: str = "auto"):
-        """D as a callable: 'stencil' (structured fast path), 'matrix'
-        (assembled CSR), or 'auto' (same choice as the JAX model)."""
+        """D as a callable: 'stencil' (structured fast path), 'varying'
+        (gather-free stencil on topologically structured meshes such as
+        Kershaw), 'window' (clustered dense windows), 'matrix' (assembled
+        CSR), or 'auto' (same choice as the JAX model)."""
         if operator == "auto":
             if self._stencil_bc():
                 operator = "stencil"
@@ -123,11 +125,15 @@ class TransportEquation:
                 operator = "window"
             else:
                 operator = "matrix"
-        if operator in ("varying", "window"):
-            item = {"varying": 13, "window": 18}[operator]
-            raise NotImplementedError(
-                f"divergence_op({operator!r}) needs the {operator} stencil/SpMV operator, "
-                f"not ported yet: see ROADMAP.md, slice 2, item {item}")
+        if operator == "varying":
+            from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
+
+            return VaryingStencilOperator.from_csr(
+                self.divergence, self.mesh.topology_shape).matvec  # type: ignore[attr-defined]
+        if operator == "window":
+            from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
+
+            return WindowedBlockOperator.from_csr(self.divergence, dtype=self.dtype).matvec
         if operator == "stencil":
             return self.stencil_operator.matvec
         if operator == "matrix":

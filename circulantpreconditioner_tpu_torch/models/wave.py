@@ -12,9 +12,10 @@
   or field-major. Field-major keeps the state as (dim+1, N) (flattened for
   GMRES) so no matvec pays an (N, m) ↔ (m, N) relayout; on a CUDA device the
   field-major D is kernel K2 (ops/plane_stencil.py) whenever the operator
-  fits its contract.
-
-The block-circulant, DCT and windowed paths wait for their ROADMAP.md items.
+  fits its contract;
+- direct steppers on cartesian grids: the block-circulant solve on periodic
+  grids (`block_fft_stepper`) and the DCT/DST solve on wall grids
+  (`dct_fft_stepper`, `dct_fft_stepper_fm`).
 """
 
 from __future__ import annotations
@@ -27,7 +28,8 @@ import torch
 
 from circulantpreconditioner_tpu_torch.mesh.core import Mesh
 from circulantpreconditioner_tpu_torch.models.transport import _explicit_step, _identity_plus
-from circulantpreconditioner_tpu_torch.ops.assembly import wave_divergence_bsr
+from circulantpreconditioner_tpu_torch.ops.assembly import wave_block_stencil, wave_divergence_bsr
+from circulantpreconditioner_tpu_torch.ops.circulant import BlockCirculantOperator
 from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix
 from circulantpreconditioner_tpu_torch.solvers.gmres import make_gmres
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
@@ -46,8 +48,15 @@ def spherical_explosion_wave(mesh: Mesh, p_in: float = P0, p_out: float = 70e5,
     return U
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported yet: see ROADMAP.md, slice 2, item {item}")
+def _direct_step(op, U):
+    U1 = op.solve(U)
+    return U1, torch.linalg.norm(U1 - U)
+
+
+def _direct_step_fm(op, G):
+    """Field-major direct step: G (nb, nC) or flat."""
+    G1 = op.solve_fm(G.reshape((op.nb,) + op.shape_zyx)).reshape(G.shape)
+    return G1, torch.linalg.norm(G1 - G)
 
 
 class WaveSystem:
@@ -136,7 +145,9 @@ class WaveSystem:
         if operator == "stencil":
             return self.stencil_operator.matvec
         if operator == "window":
-            _not_ported("divergence_op('window'), the clustered-window SpMV,", "18")
+            from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
+
+            return WindowedBlockOperator.from_bsr(self.divergence, dtype=self.dtype).matvec
         if operator in ("varying", "normal"):
             Wn = self.normal_operator
             if Wn is not None:
@@ -203,18 +214,59 @@ class WaveSystem:
         out = G.reshape(self.fm_block, -1).T.reshape(-1)
         return out.contiguous() if isinstance(out, torch.Tensor) else out
 
-    @property
-    def block_circulant_operator(self):
-        _not_ported("WaveSystem.block_circulant_operator (BlockCirculantOperator)", "12b")
+    @cached_property
+    def block_circulant_operator(self) -> BlockCirculantOperator:
+        """Direct block-circulant solver of I + D on a periodic structured grid."""
+        if not self.mesh.is_structured:
+            raise ValueError("block_circulant_operator requires a structured mesh")
+        offsets, blocks = wave_block_stencil(self.dim, self.dt, self.c0,
+                                             np.asarray(self.mesh.spacing))  # type: ignore[attr-defined]
+        return BlockCirculantOperator.from_stencil(
+            tuple(reversed(self.mesh.structured_shape)), offsets, blocks, device=self.device,
+            dtype=self.dtype)
 
     def block_fft_stepper(self, method: str = "auto"):
-        _not_ported("WaveSystem.block_fft_stepper (BlockCirculantOperator)", "12b")
+        """Block-circulant direct solve per step (periodic structured grids).
+        method: "fft" (torch.fft, cuFFT on the GPU), "matmul" (staged DFT by
+        matmul), or "auto" — the JAX rule, which takes "matmul" only on a
+        TPU, so "fft" here."""
+        if method == "auto":
+            method = "fft"
+        if method == "matmul":
+            from circulantpreconditioner_tpu_torch.ops.dft_matmul import (
+                MatmulBlockCirculantSolver,
+            )
+
+            offsets, blocks = wave_block_stencil(self.dim, self.dt, self.c0,
+                                                 np.asarray(self.mesh.spacing))  # type: ignore[attr-defined]
+            op = MatmulBlockCirculantSolver.from_stencil(
+                tuple(reversed(self.mesh.structured_shape)), offsets, blocks,
+                device=self.device, dtype=self.dtype)
+        elif method == "fft":
+            op = self.block_circulant_operator
+        else:
+            raise ValueError(f"method must be auto/fft/matmul, got {method!r}")
+        return functools.partial(_direct_step, op)
+
+    def _dct_solver(self):
+        from circulantpreconditioner_tpu_torch.ops.dct_wave import DCTBlockWaveSolver
+
+        if self._homogeneous_bc() != "wall":
+            raise ValueError("dct_fft_stepper needs a structured mesh with uniform Wall "
+                             "boundaries")
+        return DCTBlockWaveSolver.create(
+            tuple(reversed(self.mesh.structured_shape)), self.dim, self.dt, self.c0,  # type: ignore[arg-type]
+            self.mesh.spacing, device=self.device, dtype=self.dtype)  # type: ignore[attr-defined]
 
     def dct_fft_stepper(self):
-        _not_ported("WaveSystem.dct_fft_stepper (DCTBlockWaveSolver)", "16")
+        """Direct wall-boundary solve of (I + D)Uⁿ⁺¹ = Uⁿ by the exact DCT/DST
+        block diagonalisation (ops/dct_wave.py), on the flat cell-major state."""
+        return functools.partial(_direct_step, self._dct_solver())
 
     def dct_fft_stepper_fm(self):
-        _not_ported("WaveSystem.dct_fft_stepper_fm (DCTBlockWaveSolver)", "16")
+        """The same on the field-major state (nb, nC) or its flat view: no
+        (…, nb) ↔ (nb, …) relayout per step."""
+        return functools.partial(_direct_step_fm, self._dct_solver())
 
     # --- steppers -----------------------------------------------------------
     def explicit_stepper(self, operator: str = "auto"):

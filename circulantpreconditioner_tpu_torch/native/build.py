@@ -45,8 +45,11 @@ _SIGNATURES = {
     "k1_error_string": [_I],
     "k2_plane_stencil": [_P] * 5 + [_L, _I, _I] + [_L] * 6 + [ctypes.c_double, _I, _I, _P],
     "k2_error_string": [_I],
+    "k3_complex_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    "k3_error_string": [_I],
 }
-_RESTYPES = {"k1_error_string": ctypes.c_char_p, "k2_error_string": ctypes.c_char_p}
+_RESTYPES = {"k1_error_string": ctypes.c_char_p, "k2_error_string": ctypes.c_char_p,
+             "k3_error_string": ctypes.c_char_p}
 
 
 def _sources() -> list[Path]:

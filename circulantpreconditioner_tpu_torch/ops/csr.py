@@ -75,9 +75,12 @@ class CSRMatrix:
                               self.indptr.cpu().numpy()), shape=self.shape)
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
-        """y = A x via gather + index_add (segment sum)."""
-        contrib = self.data * x[self.indices]
-        y = torch.zeros(self.shape[0], dtype=contrib.dtype, device=contrib.device)
+        """y = A x via gather + index_add (segment sum). x may be (n,) or
+        (n, k): the columns are transformed independently."""
+        gathered = x[self.indices]
+        contrib = self.data[:, None] * gathered if x.ndim == 2 else self.data * gathered
+        y = torch.zeros((self.shape[0],) + tuple(x.shape[1:]), dtype=contrib.dtype,
+                        device=contrib.device)
         return y.index_add_(0, self.row_ids, contrib)
 
     def diagonal(self) -> torch.Tensor:

@@ -16,6 +16,12 @@ as accurate as its TPU form; the port maps all three to full float32 matmuls
 (24 bits; TF32 is switched off in utils/device.py, so no global flag changes
 this). Tensor-core forms for "high" (3×TF32) and "default" (TF32 or bf16) are
 later work (ROADMAP.md, queue 2, K1). The mapping is the table `PRECISION_FORMS`.
+
+`use_kernel=True` sends the complex y and z stages through kernel K3
+(ops/complex_matmul.py): each stage collapses the spectrum to (rows, n), as
+the JAX code does, and takes one K3 launch, so a 3D solve with no elided axis
+launches K3 four times. `MatmulBlockCirculantSolver` is the block-circulant
+(m × m blocks, the periodic wave system) companion.
 """
 
 from __future__ import annotations
@@ -26,9 +32,11 @@ import numpy as np
 import torch
 
 from circulantpreconditioner_tpu_torch.ops.circulant import (
+    BlockCirculantOperator,
     CirculantTransportOperator,
     np_eigenvalue_diagonal,
 )
+from circulantpreconditioner_tpu_torch.ops.complex_matmul import complex_matmul
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
 
 # tier → arithmetic the port uses for it (every entry at least as accurate
@@ -70,8 +78,19 @@ def _to(a, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float64)).to(device=device, dtype=dtype)
 
 
-def _axis_cdft(re, im, C, S, axis, ndim):
-    """Complex DFT along `axis` by matmul: (re + i·im) ← (re + i·im)·(C + i·S)."""
+def _axis_cdft(re, im, C, S, axis, ndim, kernel=False):
+    """Complex DFT along `axis` by matmul: (re + i·im) ← (re + i·im)·(C + i·S).
+    kernel=True moves the axis last, collapses to (rows, n) and takes one
+    complex_matmul (K3 on a CUDA tensor), then undoes the collapse."""
+    if kernel:
+        n = re.shape[axis]
+        rm, im_m = torch.movedim(re, axis, -1), torch.movedim(im, axis, -1)
+        lead = rm.shape[:-1]
+        o_re, o_im = complex_matmul(rm.reshape(-1, n).contiguous(),
+                                    im_m.reshape(-1, n).contiguous(), C, S)
+        k = o_re.shape[-1]
+        return (torch.movedim(o_re.reshape(lead + (k,)), -1, axis),
+                torch.movedim(o_im.reshape(lead + (k,)), -1, axis))
     sub = "zyx"[3 - ndim:]
     a = sub[axis]
     spec = f"{sub},{a}k->{sub.replace(a, 'k')}"
@@ -82,18 +101,16 @@ def _axis_cdft(re, im, C, S, axis, ndim):
 class MatmulCirculantSolver:
     """x = C⁻¹ b for real b with every transform as a dense matmul; up to 3D,
     axis order zyx. `axes` lists the z/y axes actually transformed (positions
-    in shape_zyx[:-1]); axes with λ = 0 may be elided exactly."""
+    in shape_zyx[:-1]); axes with λ = 0 may be elided exactly. use_kernel:
+    the complex y/z stages through complex_matmul (K3 on the GPU)."""
 
     def __init__(self, shape_zyx, arrays, precision: str = "highest",
                  axes: tuple[int, ...] | None = None, use_kernel: bool = False):
-        if use_kernel:
-            raise NotImplementedError(
-                "use_kernel=True routes through the complex_matmul kernel (K3), which is "
-                "not ported yet: see ROADMAP.md, queue 2")
         self.shape_zyx = tuple(int(v) for v in shape_zyx)
         self.arrays = arrays  # (inv_re, inv_im, F_re, F_im, B_re, B_im, mats)
         self.precision = check_precision(precision)
         self.axes = tuple(axes) if axes is not None else tuple(range(len(arrays[-1])))
+        self.use_kernel = bool(use_kernel)
 
     @classmethod
     def create(cls, shape_zyx: Sequence[int], lambdas_zyx: Sequence[float], *,
@@ -142,12 +159,82 @@ class MatmulCirculantSolver:
         re = torch.einsum(spec_x, g, F_re)
         im = torch.einsum(spec_x, g, F_im)
         for ax_i, (C, S, _, _) in zip(self.axes, mats):
-            re, im = _axis_cdft(re, im, C, S, ax_i, ndim)
+            re, im = _axis_cdft(re, im, C, S, ax_i, ndim, self.use_kernel)
         re, im = re * inv_re - im * inv_im, re * inv_im + im * inv_re
         for ax_i, (_, _, Ci, Si) in zip(self.axes, mats):
-            re, im = _axis_cdft(re, im, Ci, Si, ax_i, ndim)
+            re, im = _axis_cdft(re, im, Ci, Si, ax_i, ndim, self.use_kernel)
         spec_b = f"{sub[:-1]}k,kx->{sub}"
         x = torch.einsum(spec_b, re, B_re) + torch.einsum(spec_b, im, B_im)
+        return x.reshape(-1) if was_flat else x
+
+    def as_preconditioner(self):
+        return self.solve
+
+
+def _axis_cdft_b(re, im, C, S, axis, ndim):
+    """Complex DFT along spatial `axis` by matmul, with a trailing block axis m."""
+    sub = "zyx"[3 - ndim:] + "m"
+    a = sub[axis]
+    spec = f"{sub},{a}k->{sub.replace(a, 'k')}"
+    ein = lambda x, M: torch.einsum(spec, x, M)
+    return ein(re, C) - ein(im, S), ein(re, S) + ein(im, C)
+
+
+class MatmulBlockCirculantSolver:
+    """Block-circulant direct solver ((m × m) blocks: the periodic wave
+    system) with every DFT axis as a dense matmul and the pre-inverted
+    half-spectrum block symbol applied as a batched complex matvec. Companion
+    to ops/circulant.py::BlockCirculantOperator, which uses torch.fft."""
+
+    def __init__(self, shape_zyx, m: int, arrays, precision: str = "highest"):
+        self.shape_zyx = tuple(int(v) for v in shape_zyx)
+        self.m = int(m)
+        self.arrays = arrays  # (inv_re, inv_im, F_re, F_im, B_re, B_im, mats)
+        self.precision = check_precision(precision)
+
+    @classmethod
+    def from_stencil(cls, shape_zyx: Sequence[int], offsets, blocks, *,
+                     device: torch.device, dtype: torch.dtype, precision: str = "highest"):
+        shape_zyx = tuple(int(v) for v in shape_zyx)
+        m = np.asarray(blocks).shape[-1]
+        sym = BlockCirculantOperator.np_symbol(shape_zyx, offsets, blocks)
+        sym = sym[..., :shape_zyx[-1] // 2 + 1, :, :]  # hermitian symmetry: half x-spectrum
+        inv = np.linalg.inv(sym)
+        leaves = [inv.real, inv.imag, *_np_rdft_mats(shape_zyx[-1])]
+        for n in shape_zyx[:-1]:
+            leaves.extend(_np_dft_mats(n))
+        return cls.from_numpy_arrays(shape_zyx, m, leaves, device=device, dtype=dtype,
+                                     precision=precision)
+
+    @classmethod
+    def from_numpy_arrays(cls, shape_zyx, m: int, arrays, *, device: torch.device,
+                          dtype: torch.dtype, precision: str = "highest"):
+        """From the JAX solver's `arrays` flattened in order (its pytree
+        leaves): inv_re, inv_im, F_re, F_im, B_re, B_im, then (C, S, Ci, Si)
+        for each z/y axis."""
+        check_real_dtype(dtype)
+        t = [_to(a, device, dtype) for a in arrays]
+        mats = tuple(tuple(t[i:i + 4]) for i in range(6, len(t), 4))
+        return cls(shape_zyx, m, (*t[:6], mats), precision)
+
+    def solve(self, b: torch.Tensor) -> torch.Tensor:
+        """b flat cell-major (N·m,) or shaped (*shape_zyx, m); real."""
+        was_flat = b.ndim == 1
+        g = b.reshape(self.shape_zyx + (self.m,))
+        inv_re, inv_im, F_re, F_im, B_re, B_im, mats = self.arrays
+        ndim = len(self.shape_zyx)
+        sub = "zyx"[3 - ndim:] + "m"
+        spec_fwd = f"{sub},xk->{sub[:-2]}km"  # x-axis half-spectrum forward
+        re = torch.einsum(spec_fwd, g, F_re)
+        im = torch.einsum(spec_fwd, g, F_im)
+        for ax_i, (C, S, _, _) in enumerate(mats):
+            re, im = _axis_cdft_b(re, im, C, S, ax_i, ndim)
+        blk = lambda M, v: torch.einsum("...ij,...j->...i", M, v)  # noqa: E731
+        re, im = (blk(inv_re, re) - blk(inv_im, im), blk(inv_re, im) + blk(inv_im, re))
+        for ax_i, (_, _, Ci, Si) in enumerate(mats):
+            re, im = _axis_cdft_b(re, im, Ci, Si, ax_i, ndim)
+        spec_bwd = f"{sub[:-2]}km,kx->{sub}"
+        x = torch.einsum(spec_bwd, re, B_re) + torch.einsum(spec_bwd, im, B_im)
         return x.reshape(-1) if was_flat else x
 
     def as_preconditioner(self):

@@ -321,6 +321,13 @@ class VaryingStencilOperator(_GridStencil):
         return True
 
     @classmethod
+    def from_csr(cls, A, shape_xyz, dtype: torch.dtype | None = None):
+        """Scalar (m = 1) variant from a CSRMatrix."""
+        sp = A.to_scipy().tocoo()
+        return cls.from_blocks(sp.row, sp.col, sp.data.reshape(-1, 1, 1), shape_xyz,
+                               device=A.data.device, dtype=dtype or A.data.dtype)
+
+    @classmethod
     def from_bsr(cls, A, shape_xyz, dtype: torch.dtype | None = None):
         """Block variant from a BSRMatrix (its block COO)."""
         rows, cols, blocks = A.coo_numpy()

@@ -1,0 +1,226 @@
+"""The port's projection preconditioners (solvers/circulant_pc.py) and the
+drivers that use them, against the JAX package in float64 on the CPU.
+
+Tolerances:
+- the derived grid, P and P_back: the same sparsity pattern and equal
+  sampling weights (the same host NumPy and cKDTree code on bit-identical
+  cell centres, compared as sorted COO); the volume weights to 1e-14
+  relative, since the cell volumes are summed over faces taken in another
+  order and differ in the last bit;
+- preconditioner applies: 1e-12 × max|reference|;
+- drivers: equal GMRES iterations in every step, and states to 1e-6 × max|U|
+  (the additive two-level PCs and the transport PC) or 1e-9 (dct2lm and the
+  cell-major fallback). GMRES stops at rtol 1e-5 and these two-level systems
+  amplify float64 roundoff: with operators and preconditioners that agree to
+  1e-15, the states agree to about 1e-7 after one step (1.2e-7 at Kershaw 8³
+  circulant2l, 1.6e-7 for the transport PC), and at Kershaw 12³ a third dct2l
+  step takes 14 iterations against the JAX package's 13, so the drivers run
+  two steps."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from circulantpreconditioner_tpu.drivers import transport_implicit as j_tr
+from circulantpreconditioner_tpu.drivers import wave_implicit as j_imp
+from circulantpreconditioner_tpu.mesh import cartesian_mesh as j_cart
+from circulantpreconditioner_tpu.mesh.unstructured import hex_mesh as j_hex
+from circulantpreconditioner_tpu.mesh.unstructured import kershaw_mesh as j_kershaw
+from circulantpreconditioner_tpu.solvers import circulant_pc as jpc
+from circulantpreconditioner_tpu_torch.drivers import transport_implicit as t_tr
+from circulantpreconditioner_tpu_torch.drivers import wave_implicit as t_imp
+from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh as t_cart
+from circulantpreconditioner_tpu_torch.mesh import hex_mesh as t_hex
+from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh as t_kershaw
+from circulantpreconditioner_tpu_torch.solvers import circulant_pc as tpc
+
+CPU = torch.device("cpu")
+F64 = dict(device=CPU, dtype=torch.float64)
+BOUNDS = ((-0.5, 0.5),) * 3
+DT, C0 = 0.008, 700.0
+
+
+def _close(x_torch, x_ref, tol=1e-12):
+    x_ref = np.asarray(x_ref)
+    x = x_torch.numpy()
+    assert x.shape == x_ref.shape
+    np.testing.assert_allclose(x, x_ref, rtol=0, atol=tol * np.abs(x_ref).max())
+
+
+def _meshes(n, family="kershaw"):
+    if family == "kershaw":
+        return j_kershaw(BOUNDS, n), t_kershaw(BOUNDS, n)
+    return j_hex(BOUNDS, n), t_hex(BOUNDS, n)
+
+
+def _coo(P):
+    A = P.to_scipy().tocoo()
+    order = np.lexsort((A.col, A.row))
+    return A.row[order], A.col[order], A.data[order]
+
+
+@pytest.mark.parametrize("n", [(8, 8, 8), (6, 5, 7), (12, 12, 12)])
+def test_grid_context_and_projection_entries_match_jax(n):
+    mj, mt = _meshes(n)
+    np.testing.assert_array_equal(mt.cell_center, mj.cell_center)
+    ctx_j = jpc.derive_grid_context(mj, (1.0, 0.5, 0.0), DT)
+    ctx_t = tpc.derive_grid_context(mt, (1.0, 0.5, 0.0), DT)
+    for a, b in zip(ctx_t, ctx_j):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    n_xyz, _, _, bbox = ctx_t
+    for method in ("sample", "volume"):
+        Pj, Pbj = jpc.build_projection_matrices(mj, n_xyz, bbox, dtype=jnp.float64,
+                                                method=method)
+        Pt, Pbt = tpc.build_projection_matrices(mt, n_xyz, bbox, method=method, **F64)
+        for j, t in ((Pj, Pt), (Pbj, Pbt)):
+            assert t.shape == j.shape
+            (rt, ct, vt), (rj, cj, vj) = _coo(t), _coo(j)
+            np.testing.assert_array_equal(rt, rj)
+            np.testing.assert_array_equal(ct, cj)
+            np.testing.assert_allclose(vt, vj, rtol=1e-14, atol=0)
+
+
+def test_cell_volume_samples_of_hex_cells_are_centroids():
+    _, mt = _meshes((4, 4, 4))
+    s = tpc._cell_volume_samples(mt)
+    assert s.shape == (1, 64, 3)
+    np.testing.assert_array_equal(s[0], mt.cell_center)
+
+
+@pytest.mark.parametrize("kind", ["BlockCirculantProjectionPC", "DCTBlockProjectionPC"])
+@pytest.mark.parametrize("projection", ["auto", "volume", "identity"])
+def test_block_pc_applies_match_jax(kind, projection):
+    mj, mt = _meshes((8, 8, 8))
+    pj = getattr(jpc, kind)(mj, DT, C0, dtype=jnp.float64, projection=projection)
+    pt = getattr(tpc, kind)(mt, DT, C0, projection=projection, **F64)
+    assert pt.projection == pj.projection
+    assert pt.n_xyz == pj.n_xyz and pt.nb == pj.nb == 4
+    r = np.random.default_rng(0).standard_normal(mt.n_cells * 4)
+    _close(pt.apply(torch.as_tensor(r)), pj.apply(jnp.asarray(r)))
+    _close(pt(torch.as_tensor(r)), pj(jnp.asarray(r)))
+
+
+def test_block_pc_fft_form_matches_jax():
+    mj, mt = _meshes((6, 6, 6))
+    pj = jpc.BlockCirculantProjectionPC(mj, DT, C0, dtype=jnp.float64, use_matmul_dft=False)
+    pt = tpc.BlockCirculantProjectionPC(mt, DT, C0, use_matmul_dft=False, **F64)
+    r = np.random.default_rng(1).standard_normal(mt.n_cells * 4)
+    _close(pt.apply(torch.as_tensor(r)), pj.apply(jnp.asarray(r)))
+
+
+@pytest.mark.parametrize("family,n,projection", [("kershaw", (8, 8, 8), "auto"),
+                                                 ("kershaw", (6, 5, 7), "auto"),
+                                                 ("hexa", (4, 4, 4), "identity"),
+                                                 ("hexa", (5, 5, 5), "auto")])
+@pytest.mark.parametrize("use_matmul_dft", [True, False])
+def test_scalar_pc_applies_match_jax(family, n, projection, use_matmul_dft):
+    mj, mt = _meshes(n, family)
+    vel, dt = (1.0, 0.5, 0.25), 0.3
+    pj = jpc.CirculantProjectionPC(mj, vel, dt, dtype=jnp.float64, projection=projection,
+                                   use_matmul_dft=use_matmul_dft)
+    pt = tpc.CirculantProjectionPC(mt, vel, dt, projection=projection,
+                                   use_matmul_dft=use_matmul_dft, **F64)
+    assert pt.projection == pj.projection
+    r = np.random.default_rng(2).standard_normal(mt.n_cells)
+    _close(pt.apply(torch.as_tensor(r)), pj.apply(jnp.asarray(r)))
+
+
+def test_identity_projection_where_it_does_not_apply_raises():
+    """The JAX package samples instead (a silent fallback); the port raises."""
+    mj, mt = _meshes((6, 5, 7))
+    assert not tpc._identity_projection_applies(mt, tpc.derive_grid_context(mt, [0] * 3, DT)[0])
+    assert jpc.BlockCirculantProjectionPC(mj, DT, C0, dtype=jnp.float64,
+                                          projection="identity").projection != "identity"
+    for make in (lambda: tpc.BlockCirculantProjectionPC(mt, DT, C0, projection="identity",
+                                                        **F64),
+                 lambda: tpc.DCTBlockProjectionPC(mt, DT, C0, projection="identity", **F64),
+                 lambda: tpc.CirculantProjectionPC(mt, (1, 0, 0), DT, projection="identity",
+                                                   **F64)):
+        with pytest.raises(ValueError, match="identity"):
+            make()
+    with pytest.raises(ValueError, match="projection"):
+        tpc.DCTBlockProjectionPC(mt, DT, C0, projection="nearest", **F64)
+
+
+def test_scalar_pc_rejects_volume_projection():
+    """The JAX scalar PC ignores the name and samples; the port raises."""
+    _, mt = _meshes((6, 5, 7))
+    with pytest.raises(ValueError, match="volume"):
+        tpc.CirculantProjectionPC(mt, (1, 0, 0), DT, projection="volume", **F64)
+
+
+def test_pcs_default_to_the_fft_coarse_solve():
+    """The port's default coarse solve is torch.fft; the staged DFT by matmul
+    (the JAX default) is kept for the parity tests."""
+    from circulantpreconditioner_tpu_torch.ops.circulant import BlockCirculantOperator
+    from circulantpreconditioner_tpu_torch.ops.dft_matmul import (
+        MatmulBlockCirculantSolver,
+        MatmulCirculantSolver,
+    )
+
+    _, mt = _meshes((6, 6, 6))
+    assert isinstance(tpc.BlockCirculantProjectionPC(mt, DT, C0, **F64).op,
+                      BlockCirculantOperator)
+    assert isinstance(tpc.BlockCirculantProjectionPC(mt, DT, C0, use_matmul_dft=True,
+                                                     **F64).op, MatmulBlockCirculantSolver)
+    pc = tpc.CirculantProjectionPC(mt, (1, 0, 0), DT, **F64)
+    assert pc.solver is pc.op
+    assert isinstance(tpc.CirculantProjectionPC(mt, (1, 0, 0), DT, use_matmul_dft=True,
+                                                **F64).solver, MatmulCirculantSolver)
+
+
+def _its(res):
+    return [d["extras"][0] for d in res.diagnostics if d["extras"]]
+
+
+def _same_run(rt, rj, tol):
+    assert rt.iterations == rj.iterations
+    assert _its(rt) == _its(rj)
+    assert all(d["extras"][2] for d in rt.diagnostics)  # GMRES converged every step
+    _close(rt.state, rj.state, tol)
+
+
+@pytest.mark.parametrize("n", ["8", "12"])
+@pytest.mark.parametrize("pc,tol", [("circulant2l", 1e-6), ("dct2l", 1e-6), ("dct2lm", 1e-9)])
+def test_wave_implicit_projection_pcs_match_jax(tmp_path, n, pc, tol):
+    argv = (["--mesh-family", "kershaw", n, n, n, "--pc", pc, "--ntmax", "2", "--tmax", "1e9",
+             "--f64", "--result-dir", str(tmp_path)])
+    _same_run(t_imp.main(argv + ["--device", "cpu"]), j_imp.main(argv), tol)
+
+
+@pytest.mark.parametrize("pc,extra", [("dctfft", []), ("blockfft", ["--periodic"])])
+def test_wave_implicit_direct_solves_match_jax(tmp_path, pc, extra):
+    argv = ["8", "6", "5"] + extra + ["--pc", pc, "--ntmax", "3", "--tmax", "1e9", "--f64",
+                                      "--result-dir", str(tmp_path)]
+    rt, rj = t_imp.main(argv + ["--device", "cpu"]), j_imp.main(argv)
+    assert rt.iterations == rj.iterations == 3
+    _close(rt.state, rj.state)
+
+
+def test_wave_implicit_cell_major_fallback_matches_jax(tmp_path):
+    """A cartesian wall mesh has no field-major form: the two-level PCs run
+    cell-major (additive and multiplicative)."""
+    for pc in ("dct2l", "dct2lm"):
+        argv = ["6", "6", "6", "--pc", pc, "--ntmax", "2", "--tmax", "1e9", "--f64",
+                "--result-dir", str(tmp_path)]
+        _same_run(t_imp.main(argv + ["--device", "cpu"]), j_imp.main(argv), 1e-9)
+
+
+def test_transport_implicit_kershaw_circulant_matches_jax(tmp_path):
+    argv = ["--mesh-family", "kershaw", "8", "8", "8", "--pc", "circulant", "--ntmax", "2",
+            "--tmax", "1e9", "--f64", "--result-dir", str(tmp_path)]
+    _same_run(t_tr.main(argv + ["--device", "cpu"]), j_tr.main(argv), 1e-6)
+
+
+def test_scalar_pc_on_cartesian_grid_is_the_circulant_solve():
+    """On a periodic cartesian mesh the derived grid is the mesh's own grid;
+    the sampled projection then reproduces the circulant direct solve."""
+    mj, mt = j_cart(BOUNDS, (6, 6, 6), periodic=True), t_cart(BOUNDS, (6, 6, 6), periodic=True)
+    pt = tpc.CirculantProjectionPC(mt, (1.0, 0.0, 0.0), 0.2, **F64)
+    pj = jpc.CirculantProjectionPC(mj, (1.0, 0.0, 0.0), 0.2, dtype=jnp.float64)
+    r = np.random.default_rng(3).standard_normal(216)
+    x = pt.apply(torch.as_tensor(r))
+    _close(x, pj.apply(jnp.asarray(r)))
+    _close(x, pt.op.solve(torch.as_tensor(r)).numpy())

@@ -1,6 +1,7 @@
-"""Tests of the port that need the GPU: kernels K1 and K2 against their plain
-versions, one GMRES step preconditioned through K1, and one grid-V-cycle
-GMRES step on the wave system through K2. They skip without a GPU.
+"""Tests of the port that need the GPU: kernels K1, K2 and K3 against their
+plain versions, one GMRES step preconditioned through K1, one grid-V-cycle
+GMRES step on the wave system through K2, the staged DFT solve through K3,
+and one dct2lm GMRES step through K2. They skip without a GPU.
 
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
@@ -24,7 +25,7 @@ from circulantpreconditioner_tpu_torch.ops.circulant import CirculantTransportOp
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("K1 and K2 are CUDA kernels: need a GPU (torch.cuda.is_available() "
+        pytest.skip("K1, K2 and K3 are CUDA kernels: need a GPU (torch.cuda.is_available() "
                     "is False)")
     return torch.device("cuda")
 
@@ -156,5 +157,109 @@ def test_gridmg_gmres_step_launches_k2(cuda):
     pc_plain = GridVCyclePC.from_grid_model(model.divergence, (16, 16, 16),
                                             A0_apply=model.implicit_matvec(), A0_apply_fm=A_plain)
     ref = make_gmres(A_plain, pc_plain.apply_fm, side="right")(G0, G0)
+    assert ref.converged and abs(ref.iters - iters) <= 1
+    assert (G1 - ref.x).abs().max().item() <= 1e-4 * ref.x.abs().max().item()
+
+
+# --- kernel K3: the complex matrix product -----------------------------------
+# Tolerance: K3 and its plain version (four torch.matmul) sum the same
+# products in another order: 1e-5 · max|o_plain| in float32, 1e-12 in float64.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,K,N", [(8320, 128, 128), (5100, 100, 100), (37, 45, 29),
+                                   (1, 1, 1), (65, 17, 130)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_k3_kernel_matches_plain(cuda, M, K, N, dtype, tol):
+    from circulantpreconditioner_tpu_torch.ops.complex_matmul import (
+        ComplexMatmulKernel,
+        complex_matmul,
+        complex_matmul_reference,
+    )
+
+    rng = np.random.default_rng(M + K + N)
+    a = [torch.as_tensor(rng.standard_normal((M, K)), device=cuda, dtype=dtype)
+         for _ in range(2)]
+    b = [torch.as_tensor(rng.standard_normal((K, N)), device=cuda, dtype=dtype)
+         for _ in range(2)]
+    before = ComplexMatmulKernel.launches
+    o = complex_matmul(*a, *b)
+    torch.cuda.synchronize()
+    assert ComplexMatmulKernel.launches == before + 1
+    p = complex_matmul_reference(*a, *b)
+    scale = max(p[0].abs().max().item(), p[1].abs().max().item())
+    for i in range(2):
+        assert (o[i] - p[i]).abs().max().item() <= tol * scale
+
+
+@pytest.mark.gpu
+def test_k3_wrapper_rejects_what_it_cannot_take(cuda):
+    from circulantpreconditioner_tpu_torch.ops.complex_matmul import complex_matmul_cuda
+
+    a = [torch.ones(6, 4, device=cuda) for _ in range(2)]
+    b = [torch.ones(4, 3, device=cuda) for _ in range(2)]
+    with pytest.raises(ValueError, match="float64"):
+        complex_matmul_cuda(a[0], a[1].double(), *b)
+    with pytest.raises(ValueError, match="inner"):
+        complex_matmul_cuda(*a, torch.ones(5, 3, device=cuda), torch.ones(5, 3, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        complex_matmul_cuda(torch.ones(4, 6, device=cuda).T, a[1], *b)
+    with pytest.raises(ValueError, match="float16"):
+        complex_matmul_cuda(*(t.half() for t in a), *(t.half() for t in b))
+    with pytest.raises(ValueError, match="CUDA"):
+        complex_matmul_cuda(*(t.cpu() for t in a), *(t.cpu() for t in b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,lams", [((128, 128, 128), (0.3, 0.6, 1.2)),
+                                        ((100, 100, 100), (0.0, 0.0, 1e3 / 18)),
+                                        ((6, 5, 8), (0.3, 0.2, 0.9))])
+def test_staged_solve_through_k3(cuda, shape, lams):
+    """Main path E: four K3 launches per solve, the einsum form's result."""
+    from circulantpreconditioner_tpu_torch.ops.complex_matmul import ComplexMatmulKernel
+    from circulantpreconditioner_tpu_torch.ops.dft_matmul import MatmulCirculantSolver
+
+    f32 = dict(device=cuda, dtype=torch.float32)
+    sk = MatmulCirculantSolver.create(shape, lams, use_kernel=True, **f32)
+    se = MatmulCirculantSolver.create(shape, lams, **f32)
+    b = torch.as_tensor(np.random.default_rng(4).normal(size=shape).astype(np.float32),
+                        device=cuda)
+    before = ComplexMatmulKernel.launches
+    x = sk.solve(b)
+    torch.cuda.synchronize()
+    assert ComplexMatmulKernel.launches == before + 4
+    xe = se.solve(b)
+    assert (x - xe).abs().max().item() <= 1e-5 * xe.abs().max().item()
+    op = CirculantTransportOperator.create(shape, lams, **f32)
+    assert (torch.linalg.norm(op.matvec(x) - b) / torch.linalg.norm(b)).item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_dct2lm_gmres_step_launches_k2(cuda):
+    """One implicit step at Kershaw 16³ with the multiplicative DCT two-level
+    PC: K2 runs in the matvec and once in every PC apply, and the step
+    agrees with the plain operator's."""
+    import functools
+
+    from circulantpreconditioner_tpu_torch.models.transport import _identity_plus
+    from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+    from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+    from circulantpreconditioner_tpu_torch.solvers.circulant_pc import DCTBlockProjectionPC
+
+    model = _kershaw_wave((16, 16, 16), cuda, torch.float32)
+    coarse = DCTBlockProjectionPC(model.mesh, model.dt, model.c0, device=cuda,
+                                  dtype=torch.float32)
+    adapter = pcs.cell_major_adapter(coarse.apply, 4)
+    pj = pcs.pbjacobi_fm(model.divergence, shift=1.0)
+    A = model.implicit_matvec_fm()
+    G0 = model.pack_fm(model.initial_state()).reshape(-1)
+    before = PlaneStencilMatvec.launches
+    G1, _, iters, _, converged = model.implicit_stepper_fm(
+        M_fm=pcs.multiplicative(A, adapter, pj), side="right")(G0)
+    torch.cuda.synchronize()
+    assert converged and iters > 0
+    assert PlaneStencilMatvec.launches >= before + 2 * iters
+    A_plain = functools.partial(_identity_plus, model.normal_operator.matvec_fm_flat)
+    ref = make_gmres(A_plain, pcs.multiplicative(A_plain, adapter, pj), side="right")(G0, G0)
     assert ref.converged and abs(ref.iters - iters) <= 1
     assert (G1 - ref.x).abs().max().item() <= 1e-4 * ref.x.abs().max().item()

@@ -98,9 +98,13 @@ def test_matmul_solver_matches_jax_f64(shape, lams, elide):
 
 
 def test_matmul_kernel_route_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdm.MatmulCirculantSolver.create((8, 8, 8), (1.0, 1.0, 1.0), device=CPU,
-                                         dtype=torch.float32, use_kernel=True)
+    """The kernel route is ported (kernel K3, tests/test_torch_complex_matmul.py):
+    on a CPU tensor it runs K3's plain version and equals the JAX kernel route."""
+    shape, lams = (8, 8, 8), (1.0, 1.0, 1.0)
+    ts = tdm.MatmulCirculantSolver.create(shape, lams, use_kernel=True, **F64)
+    js = jdm.MatmulCirculantSolver.create(shape, lams, jnp.float64, use_kernel=True)
+    b = _b(shape, 3)
+    _close(ts.solve(torch.as_tensor(b)), js.solve(jnp.asarray(b)))
 
 
 @pytest.mark.parametrize("precision,atol", [("highest", 1e-5), ("high", 2e-4),

@@ -128,10 +128,16 @@ def test_explicit_stepper_matches_jax():
 
 
 def test_unported_operators_raise():
+    """'window' and 'varying' are ported: on a cartesian grid both equal the
+    assembled matrix's apply; an unknown operator name raises."""
     _, tmod = _models((4, 4), (1.0, 0.0), False, 1.0)
+    tmod.mesh.topology_shape = tmod.mesh.structured_shape
+    u = torch.as_tensor(np.random.default_rng(4).normal(size=16))
+    ref = tmod.divergence_op("matrix")(u)
     for op in ("window", "varying"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tmod.divergence_op(op)
+        torch.testing.assert_close(tmod.divergence_op(op)(u), ref, rtol=0, atol=1e-14)
+    with pytest.raises(ValueError, match="unknown"):
+        tmod.divergence_op("ell")
 
 
 def test_run_time_loop_matches_jax_and_stops_when_stationary():

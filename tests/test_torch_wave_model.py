@@ -170,10 +170,14 @@ def test_pbjacobi_cell_major_and_composites_match_jax():
 
 
 def test_not_ported_members_raise():
-    mt = _models((4, 4, 4), 1.0)[1]
+    """The direct solvers are ported (tests/test_torch_block_circulant.py,
+    test_torch_dct_wave.py); on a Kershaw mesh they raise as the JAX ones do,
+    since they need a structured grid. The window operator is ported too."""
+    mj, mt = _models((4, 4, 4), 1.0)
     for call in (lambda: mt.block_circulant_operator, mt.block_fft_stepper,
                  mt.dct_fft_stepper, mt.dct_fft_stepper_fm):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match="structured"):
             call()
-    with pytest.raises(NotImplementedError, match="item 18"):
-        mt.divergence_op("window")
+    x = np.random.default_rng(8).standard_normal(64 * 4)
+    _close(mt.divergence_op("window")(torch.as_tensor(x)),
+           mj.divergence_op("window")(jnp.asarray(x)), 1e-12)
