@@ -9,17 +9,29 @@ Phases, one stdout line each (more for the drivers' own logs):
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build K1 and K2 (csrc/*.cu) from the sources, one nvcc per source, timed;
 3. K1 against its plain PyTorch version in float32 at (6,5,8), at the 100³
-   flagship λ = (0, 0, dt/h) and at 64³ with velocity (1, 0.5, 0.25):
-   max|x_kernel − x_plain| ≤ 1e-5 · max|x_plain| and ‖C x − b‖/‖b‖ < 1e-4;
+   flagship λ = (0, 0, dt/h), at 64³ with velocity (1, 0.5, 0.25), at the
+   prime and odd (7,11,13) and (101,100,100), at nz = 400 (400,16,16), at
+   one plane (1,5,8) and at (4,200,300), whose planes run unfused (100³,
+   64³, 101×100×100 and 400×16×16 run x and y fused per plane):
+   max|x_kernel − x_plain| ≤ 1e-5 · max|x_plain| and
+   ‖C x − b‖/‖b‖ < 1e-4; at (2,3,9000), whose rows are too long for a
+   block's shared memory, against the plain version in float64 (float32
+   dense sums of 9000 terms err by ~1e-5 themselves). Then each of K1's five
+   passes alone at 100³ and (7,11,13), fed the plain executor's previous
+   output, against k1_passes_reference (≤ 1e-5 · max|reference|);
 4. main path A: the FFT transport driver at 100³, 5 steps;
 5. main path B: periodic 100³ transport, GMRES right-preconditioned by the
    full-3D fused circulant solve (K1), 3 steps through run_time_loop; every
    step must converge in ≤ 3 iterations, K1 must have been launched, and the
-   states must agree with the direct cuFFT solve. Then the implicit driver at
-   100³ with --pc circulant;
+   states must agree with the direct cuFFT solve; a step's wall and device
+   time (torch.profiler over 5 steps). Then the implicit driver at 100³ with
+   --pc circulant;
 6. times at 100³ of K1, its plain version, the dense, staged and cuFFT
    solvers: CUDA events (warm-up, median of repeats), CUDA-graph replay for
-   K1 and its plain version, and the kernel time from torch.profiler; each solve is held to bench.py's residual gate 1e-4.
+   K1, its plain version and the cuFFT solve (rfftn, × 1/Λ, irfftn: three
+   calls, K1's library yardstick), and the kernel time from torch.profiler;
+   each solve is held to bench.py's residual gate 1e-4. K1's five passes
+   one by one, and its two per-plane launches, by CUDA-graph replay.
 7. K2 (csrc/plane_stencil.cu) against its plain version on Kershaw wave
    operators at (16,8,5), (5,4,6) and 64³, in float32 (max|y_K2 − y_plain|
    ≤ 1e-5 · max|y_plain|) and float64 (≤ 1e-12); the host build of the 64³
@@ -64,9 +76,10 @@ Phases, one stdout line each (more for the drivers' own logs):
 
 Then one JSON line on the kernels (`ms`, `plain_ms` and `library_ms` are device
 time per call by CUDA-graph replay, `events_ms` the CUDA-event time of calls
-enqueued one by one; `bound_ms` is the least time of the function each kernel
-computes, by its cheapest known algorithm, and `algorithm_bound_ms` that of the
-kernel's own algorithm), and as the last line
+enqueued one by one, K1's `pass_ms` its passes one by one; `bound_ms` is the
+least time of the function each kernel computes, by its cheapest known
+algorithm, and `algorithm_bound_ms` that of the kernel's own algorithm), and as
+the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero without that line.
 """
@@ -191,6 +204,56 @@ def time_ms(fn, calls: int = 20) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / calls
+
+
+def k1_pass_errors(b: torch.Tensor, plan) -> list[float]:
+    """Each of K1's five passes launched alone on the plain executor's output
+    of the pass before (k1_passes_reference): max|kernel − plain| over
+    max|plain| per pass."""
+    from circulantpreconditioner_tpu_torch.ops.fused_circulant import (
+        k1_launch,
+        k1_passes_reference,
+        k1_scratch,
+    )
+
+    nz, ny, nx = plan.shape_zyx
+    spec = nz * ny * (nx // 2 + 1)
+    ref = k1_passes_reference(b, plan)
+    out, scratch = torch.empty_like(b), k1_scratch(b, plan)
+    s1, s2 = (torch.view_as_complex(scratch[i * 2 * spec:(i + 1) * 2 * spec].view(-1, 2))
+              .view(ref[0].shape) for i in range(2))
+    buffers = [s1, s2, s1, s2, out]
+    rels = []
+    for i, buf in enumerate(buffers):
+        if i > 0:
+            buffers[i - 1].copy_(ref[i - 1])
+        k1_launch(b, plan, out, scratch, 1 << i)
+        torch.cuda.synchronize()
+        rels.append(((buf - ref[i]).abs().max() / ref[i].abs().max()).item())
+    return rels
+
+
+def k1_flops(plan, row_pairs: bool) -> float:
+    """Flops of K1's FFT stages on its plan: per radix-R stage, n/R butterflies
+    per line of (R − 1) twiddle products (6 flops each, none when Ns = 1)
+    and the butterfly's adds and constant products; 8·p flops per output of
+    a leftover length-p DFT; × 1/Λ at 6 flops per spectral point. row_pairs:
+    the plane form, which runs two real rows as one complex x line."""
+    butterfly = {2: 4, 3: 16, 4: 16, 5: 40}
+    nz, ny, nx = plan.shape_zyx
+    nxr = nx // 2 + 1
+
+    def line(p) -> float:
+        total = 0.0
+        for R, ns, _ in p.stages():
+            total += (p.n / R) * (6 * (R - 1) * (ns > 1) + butterfly[R]) if R in butterfly \
+                else 8.0 * R * p.n
+        return total
+
+    px, py, pz = plan.axes
+    x_lines = nz * (ny + 1) // 2 if row_pairs else nz * ny
+    return (2 * x_lines * line(px) + 2 * nz * nxr * line(py) + 2 * ny * nxr * line(pz)
+            + 6.0 * nz * ny * nxr)
 
 
 def k2_expected_launches(its: list[int], pc_fine_applies: int, restart: int = 30) -> int:
@@ -812,9 +875,13 @@ def main() -> int:
     from circulantpreconditioner_tpu_torch.ops.circulant import CirculantTransportOperator
     from circulantpreconditioner_tpu_torch.ops.dft_matmul import MatmulCirculantSolver
     from circulantpreconditioner_tpu_torch.ops.fused_circulant import (
+        PASSES,
+        PLANE_PASSES,
         FusedCirculantSolver,
         fused_circulant_reference,
         fused_circulant_solve_cuda,
+        k1_launch,
+        k1_scratch,
     )
     from circulantpreconditioner_tpu_torch.ops.spectral_collapse import (
         DenseCirculantSolver,
@@ -833,35 +900,58 @@ def main() -> int:
     build.load_library()
     print(f"[2 build] K1, K2 and K3 built from csrc/ in {build_s:.2f} s", flush=True)
     ptxas = lib_path.with_suffix(".log").read_text().splitlines()
-    for i, line in enumerate(ptxas):  # K3's register and shared-memory report
-        if "Compiling entry function" in line and "k3_cmm" in line:
+    for i, line in enumerate(ptxas):  # K1's and K3's register and shared-memory report
+        if "Compiling entry function" in line and ("k3_cmm" in line or "k1_" in line):
             print("[2 build] " + " | ".join(x.strip() for x in ptxas[i:i + 4]), flush=True)
 
     # --- 3: K1 against its plain version ---------------------------------
     rng = np.random.default_rng(1)
     h64 = 1.0 / 64
     dt64 = (1e3 / 3) * (h64 / 6) / np.linalg.norm([1.0, 0.5, 0.25])
+    # (1,5,8): λ_z = 0, since on an axis of one point the transport spectrum
+    # is 1 (ops/circulant.py, as in the JAX package) while matvec's roll is
+    # the identity, so ‖Cx − b‖ would not measure the solve there
     configs = [
         ("6x5x8", (6, 5, 8), (0.3, 0.2, 0.9)),
         ("100^3 flagship", (N, N, N), flagship_lambdas()),
         ("64^3 a=(1,0.5,0.25)", (64, 64, 64), tuple(a * dt64 / h64 for a in (0.25, 0.5, 1.0))),
+        ("7x11x13", (7, 11, 13), (0.3, 0.2, 0.9)),
+        ("101x100x100", (101, N, N), flagship_lambdas()),
+        ("400x16x16", (400, 16, 16), (1.0, 0.5, 0.25)),
+        ("1x5x8", (1, 5, 8), (0.0, 0.2, 0.9)),
+        ("4x200x300 (unfused: a plane beyond shared memory)", (4, 200, 300), (0.3, 0.2, 0.9)),
+        ("2x3x9000 (rows beyond shared memory)", (2, 3, 9000), (0.5, 0.5, 0.5)),
     ]
     max_abs_err = 0.0
     for name, shape, lams in configs:
         solver = FusedCirculantSolver.create(shape, lams, precision="high", **f32)
         op = CirculantTransportOperator.create(shape, lams, **f32)
         b = torch.as_tensor((rng.random(shape) * 50 + 600).astype(np.float32), device=dev)
-        x_k = fused_circulant_solve_cuda(b, solver.arrays, "high")
+        x_k = fused_circulant_solve_cuda(b, solver.plan, "high")
         torch.cuda.synchronize()
-        x_p = fused_circulant_reference(b, solver.arrays, "high")
+        if max(shape) > 5000:
+            plain = "float64 plain"
+            s64 = FusedCirculantSolver.create(shape, lams, device=dev, dtype=torch.float64)
+            x_p = fused_circulant_reference(b.double(), s64.arrays, "high")
+        else:
+            plain = "plain"
+            x_p = fused_circulant_reference(b, solver.arrays, "high")
         err = (x_k - x_p).abs().max().item()
         rel = err / x_p.abs().max().item()
         res = rel_residual(op, x_k, b)
         max_abs_err = max(max_abs_err, err)
-        print(f"[3 K1 vs plain] {name}: max|dx|/max|x| {rel:.3e} (tol {TOL_KERNEL:g}), "
+        print(f"[3 K1 vs {plain}] {name}: max|dx|/max|x| {rel:.3e} (tol {TOL_KERNEL:g}), "
               f"||Cx-b||/||b|| {res:.3e} (tol {TOL_RESIDUAL:g})", flush=True)
-        check(rel <= TOL_KERNEL, f"K1 disagrees with its plain version at {name}: {rel:.3e}")
+        check(rel <= TOL_KERNEL, f"K1 disagrees with its {plain} version at {name}: {rel:.3e}")
         check(res < TOL_RESIDUAL, f"K1 residual {res:.3e} at {name}")
+    for name, shape, lams in configs[1:2] + configs[3:4]:
+        solver = FusedCirculantSolver.create(shape, lams, precision="high", **f32)
+        b = torch.as_tensor((rng.random(shape) * 50 + 600).astype(np.float32), device=dev)
+        rels = k1_pass_errors(b, solver.plan)
+        print(f"[3 K1 passes vs k1_passes_reference] {name}: "
+              + ", ".join(f"{p} {r:.3e}" for p, r in zip(PASSES, rels))
+              + f" (tol {TOL_KERNEL:g})", flush=True)
+        check(max(rels) <= TOL_KERNEL, f"a K1 pass disagrees with its plain executor at {name}")
 
     with tempfile.TemporaryDirectory() as out_dir:
         # --- 4: main path A ---------------------------------------------------
@@ -908,6 +998,19 @@ def main() -> int:
               flush=True)
         check(bool(torch.isfinite(res_b.state).all()) and dev_b < 1e-4,
               f"main path B disagrees with the direct solve: {dev_b:.3e}")
+        walls = []
+        for _ in range(10):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(u0)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        prof_b = device_profile(lambda: step(u0), calls=5)
+        busy_b, wall_b = sum(prof_b.values()), float(np.median(walls))
+        k1_b = sum(v for k, v in prof_b.items() if "k1_" in k)
+        print(f"[5 main path B] one step in a tight loop: wall {wall_b:.3f} ms (median of 10), "
+              f"device {busy_b:.3f} ms/step (profiled over 5 steps), K1 {k1_b:.4f} ms/step, busy "
+              f"{100 * busy_b / wall_b:.1f} %; {smi}", flush=True)
 
         res_i = transport_implicit.main([str(N)] * 3 + ["--pc", "circulant", "--ntmax", "3",
                                                         "--device", "cuda", "--result-dir",
@@ -929,7 +1032,7 @@ def main() -> int:
     dense = DenseCirculantSolver.create((N, N, N), lams, precision="high", **f32)
     staged = MatmulCirculantSolver.from_operator(op, precision="high")
     runs = {
-        "K1 (fused CUDA)": lambda: fused_circulant_solve_cuda(b, fused.arrays, "high"),
+        "K1 (fused CUDA)": lambda: fused_circulant_solve_cuda(b, fused.plan, "high"),
         "K1 plain (torch.matmul)": lambda: fused_circulant_reference(b, fused.arrays, "high"),
         "DenseCirculantSolver": lambda: dense.solve(b),
         "MatmulCirculantSolver": lambda: staged.solve(b),
@@ -937,8 +1040,8 @@ def main() -> int:
     }
     residuals = {name: rel_residual(op, fn(), b) for name, fn in runs.items()}
     ms = median_ms(runs)
-    k1_graph = {name: graph_ms(runs[name]) for name in ("K1 (fused CUDA)",
-                                                         "K1 plain (torch.matmul)")}
+    k1_graph = {name: graph_ms(runs[name]) for name in (
+        "K1 (fused CUDA)", "K1 plain (torch.matmul)", "cuFFT CirculantTransportOperator")}
     kernel_ms = {name: device_ms(fn) for name, fn in runs.items()}
     # CUDA-event time covers the stream including gaps, so it reads the
     # host's enqueue rate when a solver launches many small kernels
@@ -950,24 +1053,40 @@ def main() -> int:
               flush=True)
         check(residuals[name] < TOL_RESIDUAL, f"{name}: residual {residuals[name]:.3e}")
     print("[6 times] by CUDA-graph replay of 20 solves (no launch gaps): "
-          + "; ".join(f"{n} {v:.4f} ms/solve" for n, v in k1_graph.items()) + f"; {smi}",
-          flush=True)
+          + "; ".join(f"{n} {v:.4f} ms/solve" for n, v in k1_graph.items())
+          + f" (cuFFT: rfftn, × 1/Λ, irfftn, three calls); {smi}", flush=True)
+    out, scratch = torch.empty_like(b), k1_scratch(b, fused.plan)
+    k1_launch(b, fused.plan, out, scratch)
+    masks = {name: 1 << i for i, name in enumerate(PASSES)} | PLANE_PASSES
+    pass_ms = {name: graph_ms(lambda m=m: k1_launch(b, fused.plan, out, scratch, m))
+               for name, m in masks.items()}
+    pass_ms["the solve as five unfused passes"] = graph_ms(
+        lambda: [k1_launch(b, fused.plan, out, scratch, 1 << i) for i in range(len(PASSES))])
+    print("[6 times] K1 by pass, CUDA-graph replay of 20 launches: "
+          + "; ".join(f"{n} {v * 1e3:.2f} us" for n, v in pass_ms.items())
+          + f"; the solve runs the two plane passes and z; {smi}", flush=True)
 
     # K1's least time for its function, x = C⁻¹b: b in, 1/Λ (re, im) in and
     # x out over the memory rate, or the FFT form's operations (a real 3D
     # FFT each way at 2.5·n·log2(n) flops, one complex product per mode) over
-    # the fp32 peak; beside it, the bound of K1's own algorithm, the six
-    # dense DFT stages' FMA work
+    # the fp32 peak; beside it, the bound of K1's own algorithm as it runs at
+    # 100^3, the plane form (nz ≥ 64 and a plane fits): the bytes of its three
+    # launches (b and x once, the half spectrum out of the first, in and out
+    # of z, into the last, 1/Λ in z) against the flops of its plan's stages;
+    # and the five-pass form's, whose spectrum crosses device memory 8 times
     nxr = N // 2 + 1
-    k1_bytes = 4.0 * (2 * N**3 + 2 * N * N * nxr)
-    k1_fft_flops = 2 * 2.5 * N**3 * np.log2(N**3) + 6.0 * N * N * nxr
-    k1_dft_flops = 2 * (4.0 * N * N * N * nxr) + 2 * (8.0 * N * nxr * N * N) * 2
+    spec = N * N * nxr
+    k1_bytes = 4.0 * (2 * N**3 + 2 * spec)
+    k1_fft_flops = 2 * 2.5 * N**3 * np.log2(N**3) + 6.0 * spec
     k1_bound, k1_by = bound(k1_fft_flops, k1_bytes)
-    k1_alg, _ = bound(k1_dft_flops, k1_bytes)
+    k1_alg, k1_alg_by = bound(k1_flops(fused.plan, True), 4.0 * 2 * N**3 + 8.0 * 5 * spec)
+    five_ms, _ = bound(k1_flops(fused.plan, False), 4.0 * 2 * N**3 + 8.0 * 9 * spec)
     print(f"[6 times] K1 bound at 100^3: {k1_bound:.4f} ms ({k1_by}: {k1_bytes / 1e6:.2f} MB; "
-          f"the FFT form's {k1_fft_flops / 1e9:.3f} GFLOP); K1's dense-DFT algorithm "
-          f"{k1_alg:.4f} ms ({k1_dft_flops / 1e9:.2f} GFLOP); no single library call "
-          f"computes it (cuFFT's rfftn, divide, irfftn is the row above)", flush=True)
+          f"the FFT form's {k1_fft_flops / 1e9:.3f} GFLOP); K1's plane form "
+          f"{k1_alg:.4f} ms ({k1_alg_by}: {(8 * N**3 + 40 * spec) / 1e6:.2f} MB, its plan's "
+          f"{k1_flops(fused.plan, True) / 1e9:.3f} GFLOP); the five-pass form {five_ms:.4f} ms "
+          f"({(8 * N**3 + 72 * spec) / 1e6:.2f} MB, {k1_flops(fused.plan, False) / 1e9:.3f} "
+          f"GFLOP); the library yardstick is the cuFFT solve above, three calls", flush=True)
 
     k2, mesh64, mi = wave_phases(dev, smi)
     k3 = fft_pc_phases(dev, smi, mesh64, mi)
@@ -984,10 +1103,11 @@ def main() -> int:
         "ms": k1_graph["K1 (fused CUDA)"],
         "plain_ms": k1_graph["K1 plain (torch.matmul)"],
         "events_ms": ms["K1 (fused CUDA)"],
+        "pass_ms": pass_ms,
         "bound_ms": k1_bound,
         "bound_by": k1_by,
         "algorithm_bound_ms": k1_alg,
-        "library_ms": None,
+        "library_ms": k1_graph["cuFFT CirculantTransportOperator"],
     }, {
         "name": "plane_stencil_matvec (K2)",
         "route": "cuda",

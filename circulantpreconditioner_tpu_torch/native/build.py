@@ -39,17 +39,19 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_IP = ctypes.POINTER(ctypes.c_int)  # a host int array (K1's plan)
 # entry point → argtypes; restype is c_int (cudaError_t) unless listed below
 _SIGNATURES = {
-    "k1_fused_circulant_solve": [_P] * 17 + [_I, _I, _I, _I, _P],
+    "k1_fused_circulant_solve": [_P] * 7 + [_IP] + [_I] * 5 + [_P],
+    "k1_scratch_floats": [_IP, _I, _I, _I],
     "k1_error_string": [_I],
     "k2_plane_stencil": [_P] * 5 + [_L, _I, _I] + [_L] * 6 + [ctypes.c_double, _I, _I, _P],
     "k2_error_string": [_I],
     "k3_complex_matmul": [_P] * 6 + [_I] * 5 + [_P],
     "k3_error_string": [_I],
 }
-_RESTYPES = {"k1_error_string": ctypes.c_char_p, "k2_error_string": ctypes.c_char_p,
-             "k3_error_string": ctypes.c_char_p}
+_RESTYPES = {"k1_error_string": ctypes.c_char_p, "k1_scratch_floats": _L,
+             "k2_error_string": ctypes.c_char_p, "k3_error_string": ctypes.c_char_p}
 
 
 def _sources() -> list[Path]:
