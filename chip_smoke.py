@@ -7,7 +7,10 @@ Needs one CUDA GPU (exits 1 without one) and the repository beside this file.
 Phases, one stdout line each (more for the drivers' own logs):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build K1 and K2 (csrc/*.cu) from the sources, one nvcc per source, timed;
+2. build K1, K2 and K3 (csrc/*.cu) from the sources, one nvcc per source,
+   timed; ptxas's report of K1 and K3; the count of tensor-core instructions
+   (HMMA, HGMMA) in the SASS of each of K3's float32 kernels (cuobjdump),
+   which must not be 0;
 3. K1 against its plain PyTorch version in float32 at (6,5,8), at the 100³
    flagship λ = (0, 0, dt/h), at 64³ with velocity (1, 0.5, 0.25), at the
    prime and odd (7,11,13) and (101,100,100), at nz = 400 (400,16,16), at
@@ -51,9 +54,13 @@ Phases, one stdout line each (more for the drivers' own logs):
    explicit and of an implicit step, and the median wall time of the
    drivers' explicit and implicit steps; the same field-major operator as one
    torch.sparse_csr_tensor product, the library yardstick of K2.
-11. K3 (csrc/complex_matmul.cu) against its plain version at (8320,128)·
-   (128,128), (5100,100)·(100,100) and a ragged (37,45)·(45,29): max|o_K3 −
-   o_plain| ≤ 1e-5 · max|o_plain| in float32, 1e-12 in float64;
+11. K3 (csrc/complex_matmul.cu; float32 in 3×TF32 on the tensor cores)
+   against its plain version at (8320,128)·(128,128), (5100,100)·(100,100),
+   a ragged (37,45)·(45,29) and (2113,129)·(129,136), the edges of its
+   float32 tiling (16·132 + 1 rows, a second chunk of K, a second column
+   tile): max|o_K3 − o_plain| ≤ 1e-5 · max|o_plain| in float32, 1e-12 in
+   float64; then K3 and the plain version against float64 at the two stage
+   shapes with B the DFT matrix (K3 ≤ 2e-6 · max|o|);
 12. main path E: the staged DFT solve through K3, MatmulCirculantSolver(
    use_kernel=True) at 128³ with velocity (1, 0.5, 0.25) and at the 100³
    flagship λ: 4 K3 launches per solve, agreement with the einsum form to
@@ -66,9 +73,12 @@ Phases, one stdout line each (more for the drivers' own logs):
    blockfft --periodic at 64³, 20 steps each, with the residual of one
    direct step; transport_implicit --mesh-family kershaw 32³ --pc circulant,
    2 steps. The host build of the 64³ projection is timed on its own line;
-14. times: K3 per call and per solve against its plain version and one
-   complex64 torch.matmul (cuBLAS), by CUDA events, CUDA-graph replay and
-   torch.profiler (with the launches it recorded), with the bound; the dct2lm step's wall
+14. times: K3 per call against its plain version and one complex64
+   torch.matmul (cuBLAS), by CUDA events, CUDA-graph replay and
+   torch.profiler (with the launches it recorded), with its bound (bytes,
+   or 3 × 6·M·K·N flops over the TF32 peak) and the TFLOP/s of its 12
+   tensor-core products; the staged solve per call, through K3 and by
+   einsums, beside K3's share of it (4 K3 calls); the dct2lm step's wall
    and device busy share at 64³; one preconditioner apply split into P, the
    DCT solve, P_back and the smoother; the periodic coarse solves of the
    projection PCs (block 64³, scalar 32³) by torch.fft, their default, and
@@ -76,10 +86,11 @@ Phases, one stdout line each (more for the drivers' own logs):
 
 Then one JSON line on the kernels (`ms`, `plain_ms` and `library_ms` are device
 time per call by CUDA-graph replay, `events_ms` the CUDA-event time of calls
-enqueued one by one, K1's `pass_ms` its passes one by one; `bound_ms` is the
-least time of the function each kernel computes, by its cheapest known
-algorithm, and `algorithm_bound_ms` that of the kernel's own algorithm), and as
-the last line
+enqueued one by one, K1's `pass_ms` its passes one by one, K3's `stages` its
+numbers at the 128³ and 100³ stage shapes (the top-level ones are the 128³
+stage's); `bound_ms` is the least time of the function each kernel computes,
+by its cheapest known algorithm, and `algorithm_bound_ms` that of the kernel's
+own algorithm), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero without that line.
 """
@@ -104,13 +115,15 @@ NW = 64  # the Kershaw grid bench_suite.py measures the wave system at
 TOL_K2 = {torch.float32: 1e-5, torch.float64: 1e-12}  # max|y_K2 − y_plain| / max|y_plain|
 TOL_K3 = TOL_K2  # max|o_K3 − o_plain| / max|o_plain|
 PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
+PEAK_TF32 = 495e12  # H100 SXM dense TF32 on the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
     """(least ms the card could take, what bounds it): the larger of the
-    operations over the fp32 peak and the bytes over the memory rate."""
-    t_ops, t_bytes = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    operations over the peak rate of their type (fp32 unless given) and the
+    bytes over the memory rate."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -204,6 +217,33 @@ def time_ms(fn, calls: int = 20) -> float:
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / calls
+
+
+def tensor_core_instructions(lib_path, nvcc: str, kernel: str) -> dict[str, int]:
+    """HMMA and HGMMA instructions in the SASS of each function of the built
+    library whose name holds `kernel` (cuobjdump beside nvcc), by function:
+    the mangled template arguments shortened to <...>."""
+    import re
+    from pathlib import Path
+
+    cuobjdump = Path(nvcc).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts: dict[str, int] = {}
+    name = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            name = None
+            if kernel in fn:  # template arguments: bools, mangled as Lb0E / Lb1E
+                m = re.match(r"I((?:Lb[01]E)+)E", fn[fn.index(kernel) + len(kernel):])
+                args = re.findall(r"Lb([01])E", m.group(1)) if m else []
+                name = f"{kernel}<{', '.join('true' if b == '1' else 'false' for b in args)}>"
+                counts[name] = 0
+        elif name is not None and re.search(r"\bHG?MMA\.", line):
+            counts[name] += 1
+    return counts
 
 
 def k1_pass_errors(b: torch.Tensor, plan) -> list[float]:
@@ -571,7 +611,7 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
 
     # --- 11: K3 against its plain version ----------------------------------
     k3_shapes = {"128^3 stage": (8320, 128, 128), "100^3 stage": (5100, 100, 100),
-                 "ragged": (37, 45, 29)}
+                 "ragged": (37, 45, 29), "tiling edges": (2113, 129, 136)}
     k3_err = 0.0
     for dtype in (torch.float32, torch.float64):
         for label, (M, K, Nn) in k3_shapes.items():
@@ -588,6 +628,24 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
                   f"{label} {dtype}: {rel:.3e}")
             if dtype == torch.float32:
                 k3_err = max(k3_err, err)
+
+    # K3 and its plain version against float64, with B the forward DFT matrix
+    # (the staged solver's operand): 3×TF32 is to be as accurate as fp32
+    for label in ("128^3 stage", "100^3 stage"):
+        M, n, _ = k3_shapes[label]
+        k = np.arange(n)
+        W = np.exp(-2j * np.pi * np.outer(k, k) / n)
+        a64 = planes((M, n), torch.float64)
+        b64 = [torch.as_tensor(x, device=dev) for x in (W.real, W.imag)]
+        want = complex_matmul_reference(*a64, *b64)
+        scale = max(w.abs().max().item() for w in want)
+        a32, b32 = [x.float() for x in a64], [x.float() for x in b64]
+        errs = {name: max((o[i].double() - want[i]).abs().max().item() for i in range(2)) / scale
+                for name, o in (("K3", complex_matmul_cuda(*a32, *b32)),
+                                ("plain fp32", complex_matmul_reference(*a32, *b32)))}
+        print(f"[11 K3 vs float64] {label}, B the DFT matrix: max|do|/max|o| K3 "
+              f"{errs['K3']:.3e}, plain fp32 {errs['plain fp32']:.3e} (K3's tol 2e-6)", flush=True)
+        check(errs["K3"] <= 2e-6, f"K3 is off float64 at {label}: {errs['K3']:.3e}")
 
     # --- 12: main path E, the staged DFT solve through K3 --------------------
     h = 1.0 / 128
@@ -751,7 +809,7 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
     # --- 14: times ----------------------------------------------------------
     print(f"[14 times] CUDA events: median of 7 x 20 calls; kernel time: torch.profiler over "
           f"20 calls; on {smi}:", flush=True)
-    k3_json = {}
+    stage = {}
     for label in ("128^3 stage", "100^3 stage"):
         M, K, Nn = k3_shapes[label]
         a, b = planes((M, K), torch.float32), planes((K, Nn), torch.float32)
@@ -762,38 +820,47 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
         ms = median_ms(runs)
         gms = {name: graph_ms(fn) for name, fn in runs.items()}
         profs = {name: device_profile(fn) for name, fn in runs.items()}
-        # the complex product needs 3 real products (Gauss's form, as in
-        # cgemm3m): 6·M·K·N flops; K3 does the 4 of the direct form, 8·M·K·N
-        flops = 8.0 * M * K * Nn
+        # the least time of the function at fp32 accuracy: its bytes, or the
+        # 3 real products of Gauss's form (6·M·K·N flops), each as 3×TF32, over
+        # the TF32 peak; K3 does the direct form's 4, 12 tensor-core products
+        # (24·M·K·N flops); the plain version and cuBLAS do the 4 in fp32
         nbytes = 4.0 * 2 * (M * K + K * Nn + M * Nn)
-        b_ms, b_by = bound(6.0 * M * K * Nn, nbytes)
-        alg_ms, _ = bound(flops, nbytes)
+        b_ms, b_by = bound(3 * 6.0 * M * K * Nn, nbytes, PEAK_TF32)
+        k3_flops = 24.0 * M * K * Nn
+        alg_ms, _ = bound(k3_flops, nbytes, PEAK_TF32)
         print(f"[14 times] K3 per call at {label} ({M},{K})·({K},{Nn}), float32: bound "
-              f"{b_ms:.4f} ms ({b_by}: {6.0 * M * K * Nn / 1e9:.3f} GFLOP in 3 real products, "
-              f"{nbytes / 1e6:.1f} MB); the direct form's 4 products, as K3 does them: "
-              f"{alg_ms:.4f} ms ({flops / 1e9:.3f} GFLOP); TFLOP/s below count the 4; {smi}",
-              flush=True)
+              f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB; 3 × 6·M·K·N = "
+              f"{18.0 * M * K * Nn / 1e9:.3f} GFLOP at the TF32 peak take "
+              f"{18.0 * M * K * Nn / PEAK_TF32 * 1e3:.4f} ms); K3's 12 tensor-core products "
+              f"({k3_flops / 1e9:.3f} GFLOP): {alg_ms:.4f} ms; {smi}", flush=True)
         for name in runs:
             kms = sum(profs[name].values())
+            rate = (f"{k3_flops / gms[name] / 1e9:.1f} TFLOP/s of its 12 tensor-core products"
+                    if name == "K3" else f"{8.0 * M * K * Nn / gms[name] / 1e9:.1f} TFLOP/s of "
+                    f"the direct form's 4 real products in fp32")
             print(f"[14 times]   {name}: {ms[name]:.4f} ms/call by CUDA events, "
-                  f"{gms[name]:.4f} ms/call by CUDA-graph replay = "
-                  f"{flops / gms[name] / 1e9:.2f} TFLOP/s; profiler {kms:.4f} ms/call over "
-                  f"20 calls ({', '.join(f'{k[:24]} x{n}' for k, n in profs[name].counts.items())})"
+                  f"{gms[name]:.4f} ms/call by CUDA-graph replay = {rate}; profiler "
+                  f"{kms:.4f} ms/call over 20 calls "
+                  f"({', '.join(f'{k[:24]} x{n}' for k, n in profs[name].counts.items())})"
                   f"; {smi}", flush=True)
-        if label == "128^3 stage":
-            k3_json = {"ms": gms["K3"], "plain_ms": gms["K3 plain (4 torch.matmul)"],
-                       "library_ms": gms["library (complex64 torch.matmul)"],
-                       "events_ms": ms["K3"],
-                       "bound_ms": b_ms, "bound_by": b_by, "algorithm_bound_ms": alg_ms}
+        stage[label] = {"ms": gms["K3"], "plain_ms": gms["K3 plain (4 torch.matmul)"],
+                        "library_ms": gms["library (complex64 torch.matmul)"],
+                        "events_ms": ms["K3"], "bound_ms": b_ms, "bound_by": b_by,
+                        "algorithm_bound_ms": alg_ms}
+    k3_json = dict(stage["128^3 stage"], stages=stage)  # the 128³ stage's, and both stages
+    solve_stage = {"128^3 a=(1,0.5,0.25)": "128^3 stage", "100^3 flagship": "100^3 stage"}
     for label, (sk, se, b) in solvers.items():
         runs = {"use_kernel=True (K3)": lambda: sk.solve(b), "einsum": lambda: se.solve(b)}
         ms = median_ms(runs)
         gms = {name: graph_ms(fn) for name, fn in runs.items()}
         kms = {name: device_ms(fn) for name, fn in runs.items()}
+        k3_part = 4 * stage[solve_stage[label]]["ms"]
         print(f"[14 times] staged solve at {label}: "
               + "; ".join(f"{n} {ms[n]:.4f} ms/solve by events, {gms[n]:.4f} by graph replay, "
                           f"profiler {kms[n]:.4f}" for n in runs)
-              + f"; {smi}", flush=True)
+              + f"; K3's share: 4 calls x {k3_part / 4:.4f} = {k3_part:.4f} ms, "
+              f"{100 * k3_part / gms['use_kernel=True (K3)']:.1f} % of the K3 solve's graph time"
+              f"; {smi}", flush=True)
 
     # the dct2lm step at NW^3 in a tight loop, and one preconditioner apply
     A_k2 = mi.implicit_matvec_fm()
@@ -903,6 +970,11 @@ def main() -> int:
     for i, line in enumerate(ptxas):  # K1's and K3's register and shared-memory report
         if "Compiling entry function" in line and ("k3_cmm" in line or "k1_" in line):
             print("[2 build] " + " | ".join(x.strip() for x in ptxas[i:i + 4]), flush=True)
+    mma = tensor_core_instructions(lib_path, build.nvcc_path(), "k3_cmm_tf32x3")
+    print(f"[2 build] K3 float32 kernels, tensor-core instructions (HMMA, HGMMA) in their SASS "
+          f"(cuobjdump -sass): {mma}", flush=True)
+    check(len(mma) > 0 and min(mma.values()) > 0, f"K3's float32 kernels have no tensor-core "
+          f"instruction: {mma}")
 
     # --- 3: K1 against its plain version ---------------------------------
     rng = np.random.default_rng(1)

@@ -70,7 +70,8 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libcirculant_kernels-{h.hexdigest()[:16]}.so"
 
 
-def _nvcc() -> str:
+def nvcc_path() -> str:
+    """The nvcc to build with: $CUDA_HOME/bin, /usr/local/cuda/bin or PATH."""
     for home in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
         if home and (Path(home) / "bin" / "nvcc").is_file():
             return str(Path(home) / "bin" / "nvcc")
@@ -96,7 +97,7 @@ def build(force: bool = False) -> tuple[Path, float]:
     if lib.is_file() and not force:
         return lib, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
+    nvcc = nvcc_path()
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         objs = [Path(tmp) / f"{src.stem}.o" for src in _sources()]

@@ -13,6 +13,18 @@ the kernel to the plain version: an operand the kernel cannot take raises.
 The JAX wrapper's rule that M, N and K be multiples of 128 (a Mosaic tiling
 rule, below which it falls back to plain dots) is dropped: K3 masks the
 ragged edges itself.
+
+Arithmetic. In float32, K3 runs on the tensor cores in 3×TF32: every operand
+x is split into x_hi = tf32(x) and x_lo = tf32(x − x_hi), TF32 being float32
+rounded to nearest (ties away from zero) at 10 mantissa bits, and each real
+product is a_hi·b_hi + a_hi·b_lo + a_lo·b_hi, summed in float32: the 12
+products of each 8-deep step on the tensor cores, the steps' sums in float32
+rounded to nearest (csrc/complex_matmul.cu says why). Its error against
+float64 is that of a float32 product (about 4e-7 · max|o| at the staged
+solver's shapes); one TF32 pass would err by about 2.5e-4. The TPU kernel ran
+one bf16 pass. `complex_matmul_tf32x3_emulation` repeats this arithmetic on
+the CPU for the tests, with every sum rounded to nearest; no path of the
+solver calls it. In float64, K3 runs on the CUDA cores in full float64.
 """
 
 from __future__ import annotations
@@ -20,7 +32,7 @@ from __future__ import annotations
 import torch
 
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
-MAX_ROWS = 65535 * 64  # the launch grid's y extent times the 64-row tile
+MAX_ROWS = 65535 * 64  # the float64 launch grid's y extent times its 64-row tile
 
 
 class ComplexMatmulKernel:
@@ -33,6 +45,44 @@ def complex_matmul_reference(a_re: torch.Tensor, a_im: torch.Tensor, b_re: torch
                              b_im: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Plain version of K3: o_re = a_re@b_re − a_im@b_im, o_im = a_re@b_im + a_im@b_re."""
     return a_re @ b_re - a_im @ b_im, a_re @ b_im + a_im @ b_re
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """float32 → TF32, as cvt.rna.tf32.f32 does: round to nearest at 10
+    mantissa bits, ties away from zero, by integer arithmetic on the bits
+    (the 13 low bits of the result are zero)."""
+    if x.dtype != torch.float32:
+        raise ValueError(f"tf32_round takes float32, got {x.dtype}")
+    bits = x.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = (bits + 0x1000) & 0xFFFFE000  # add half of the dropped 13 bits' range to |x|
+    bits = torch.where(bits >= 2**31, bits - 2**32, bits)
+    return bits.to(torch.int32).view(torch.float32).reshape(x.shape)
+
+
+def tf32_split(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x_hi, x_lo) = (tf32(x), tf32(x − x_hi)): x_hi + x_lo equals x to about
+    2⁻²² relative."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def complex_matmul_tf32x3_emulation(a_re: torch.Tensor, a_im: torch.Tensor,
+                                    b_re: torch.Tensor, b_im: torch.Tensor,
+                                    terms: int = 3) -> tuple[torch.Tensor, torch.Tensor]:
+    """K3's float32 arithmetic on the CPU: each real product as
+    a_hi·b_hi + a_hi·b_lo + a_lo·b_hi (terms=3) or a_hi·b_hi alone (terms=1,
+    one TF32 pass), each term a float32 matmul of TF32 values (their
+    products are exact in float32)."""
+    if terms not in (1, 3):
+        raise ValueError(f"terms must be 1 or 3, got {terms}")
+    (arh, arl), (aih, ail) = tf32_split(a_re), tf32_split(a_im)
+    (brh, brl), (bih, bil) = tf32_split(b_re), tf32_split(b_im)
+
+    def prod(ah, al, bh, bl):
+        return ah @ bh if terms == 1 else ah @ bh + ah @ bl + al @ bh
+
+    return (prod(arh, arl, brh, brl) - prod(aih, ail, bih, bil),
+            prod(arh, arl, bih, bil) + prod(aih, ail, brh, brl))
 
 
 def _check_kernel_inputs(a_re, a_im, b_re, b_im) -> None:

@@ -12,16 +12,18 @@ All tables are built in float64 on the host and cast once.
 Precision tiers. The JAX package names three tiers after the TPU's matrix
 unit: "highest" (float32, six bf16 passes), "high" (bf16x3, about 16 mantissa
 bits) and "default" (one bf16 pass, 8 bits). Each tier here must be at least
-as accurate as its TPU form; the port maps all three to full float32 matmuls
-(24 bits; TF32 is switched off in utils/device.py, so no global flag changes
-this). Tensor-core forms for "high" (3×TF32) and "default" (TF32 or bf16) are
-later work (ROADMAP.md, queue 2, K1). The mapping is the table `PRECISION_FORMS`.
+as accurate as its TPU form; the einsum route maps all three to full float32
+matmuls (24 bits; TF32 is switched off in utils/device.py, so no global flag
+changes this). The mapping is the table `PRECISION_FORMS`.
 
 `use_kernel=True` sends the complex y and z stages through kernel K3
 (ops/complex_matmul.py): each stage collapses the spectrum to (rows, n), as
 the JAX code does, and takes one K3 launch, so a 3D solve with no elided axis
-launches K3 four times. `MatmulBlockCirculantSolver` is the block-circulant
-(m × m blocks, the periodic wave system) companion.
+launches K3 four times. In float32 K3 computes in 3×TF32 on the tensor cores
+in every tier, as accurate as float32 (about 4e-7 · max|o| against float64 at
+n = 100 and 128); the JAX kernel route ran one bf16 pass whatever the tier.
+`MatmulBlockCirculantSolver` is the block-circulant (m × m blocks, the
+periodic wave system) companion.
 """
 
 from __future__ import annotations
@@ -39,8 +41,8 @@ from circulantpreconditioner_tpu_torch.ops.circulant import (
 from circulantpreconditioner_tpu_torch.ops.complex_matmul import complex_matmul
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
 
-# tier → arithmetic the port uses for it (every entry at least as accurate
-# as the TPU tier of the same name)
+# tier → arithmetic of the einsum route (every entry at least as accurate as
+# the TPU tier of the same name); the K3 route is 3×TF32 in every tier
 PRECISION_FORMS = {"highest": "fp32", "high": "fp32", "default": "fp32"}
 
 

@@ -178,12 +178,21 @@ def test_gridmg_gmres_step_launches_k2(cuda):
 
 
 # --- kernel K3: the complex matrix product -----------------------------------
-# Tolerance: K3 and its plain version (four torch.matmul) sum the same
-# products in another order: 1e-5 · max|o_plain| in float32, 1e-12 in float64.
+# Tolerance: in float32 K3 computes in 3×TF32 on the tensor cores (about
+# float32's accuracy, tests/test_torch_tf32_split.py), its plain version in
+# float32 (four torch.matmul): 1e-5 · max|o_plain|. In float64 both sum the
+# same products in another order: 1e-12. Beyond the staged solver's shapes,
+# the cases take the edges of the float32 tiling: K and N not multiples of 8
+# (4-byte copies where not multiples of 4), N = 104 (n = 100 padded) and 136
+# (a second column tile), K = 129 (a second chunk of B), M = 16·132 + 1 (one
+# unit more than the SMs), K = 300 and N = 260 (three chunks, three column
+# tiles).
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,K,N", [(8320, 128, 128), (5100, 100, 100), (37, 45, 29),
-                                   (1, 1, 1), (65, 17, 130)])
+                                   (1, 1, 1), (65, 17, 130), (2113, 100, 100),
+                                   (300, 99, 104), (257, 104, 104), (300, 129, 136),
+                                   (40, 64, 30), (70, 300, 260)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
 def test_k3_kernel_matches_plain(cuda, M, K, N, dtype, tol):
     from circulantpreconditioner_tpu_torch.ops.complex_matmul import (
