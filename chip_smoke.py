@@ -82,7 +82,28 @@ Phases, one stdout line each (more for the drivers' own logs):
    and device busy share at 64³; one preconditioner apply split into P, the
    DCT solve, P_back and the smoother; the periodic coarse solves of the
    projection PCs (block 64³, scalar 32³) by torch.fft, their default, and
-   by the staged DFT (use_matmul_dft=True, the JAX package's default).
+   by the staged DFT (use_matmul_dft=True, the JAX package's default);
+15. main path G, GMRES + ILU(0) on the wave system at cartesian 32³ (cfl
+   1e3/3, float32; bench_suite.py's bench_wave_ilu): the host factor and
+   level schedule, timed, with 98 levels per triangle; the card's ILU apply
+   against the port's float64 CPU apply of the same factor (max|dz|/max|z| ≤
+   1e-5); one GMRES + ILU(0) step with maxiter 100 (the bench's cap; at this
+   cfl it does not converge, in the JAX package either: the step must be
+   finite and its iterations are printed), the same step with block-Jacobi
+   ILU(0) over 4 blocks, and wave_implicit with no --pc (ILU(0), the
+   default) for 2 steps; the launches of one apply (torch.profiler), its
+   time by CUDA events and by CUDA-graph replay, and a step's wall;
+16. main path H, diffusion at 64³: a CG step on the wall cartesian mesh at cfl
+   10 (‖(I+D)x − b‖/‖b‖ < 1e-4), the FFT step on the periodic mesh against
+   one CG solve of the same right-hand side (max|dx|/max|x| ≤ 1e-4), a
+   Fourier mode's amplitude after 3 FFT steps against exact_mode_decay (1e-5
+   relative), and diffusion_implicit --method pc on Kershaw 64³, 2 steps
+   (every step converges); the wall per step of each;
+17. main path I, wave_implicit --pc aggvcycle on Kershaw 24³, 2 steps (every
+   step converges): iterations, the hierarchy's levels and host build, and
+   one V-cycle apply by CUDA events and by CUDA-graph replay.
+Paths G, H and I launch none of K1, K2 and K3; their launch counts are
+printed (0 expected) and checked.
 
 Then one JSON line on the kernels (`ms`, `plain_ms` and `library_ms` are device
 time per call by CUDA-graph replay, `events_ms` the CUDA-event time of calls
@@ -929,6 +950,232 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
             **k3_json, "k2_launches_by_path": k2_by_path}
 
 
+def kernel_launches() -> dict[str, int]:
+    """The launch counters of K1, K2 and K3."""
+    from circulantpreconditioner_tpu_torch.ops.complex_matmul import ComplexMatmulKernel
+    from circulantpreconditioner_tpu_torch.ops.fused_circulant import FusedCirculantSolver
+    from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+
+    return {"K1": FusedCirculantSolver.launches, "K2": PlaneStencilMatvec.launches,
+            "K3": ComplexMatmulKernel.launches}
+
+
+def reset_kernel_launches() -> None:
+    from circulantpreconditioner_tpu_torch.ops.complex_matmul import ComplexMatmulKernel
+    from circulantpreconditioner_tpu_torch.ops.fused_circulant import FusedCirculantSolver
+    from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+
+    FusedCirculantSolver.launches = PlaneStencilMatvec.launches = ComplexMatmulKernel.launches = 0
+
+
+def step_walls(step, U0, reps: int = 3) -> list[float]:
+    """Host ms of `reps` steps from U0, each ended by a synchronise (after one
+    warm-up step)."""
+    step(U0)
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(U0)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    return walls
+
+
+def slice6_phases(dev: torch.device, smi: str) -> None:
+    """Phases 15 to 17: main paths G (GMRES + ILU(0) and block-Jacobi ILU(0)
+    on the wave system), H (diffusion: CG, the FFT solve, the projection PC)
+    and I (the aggregation V-cycle). No TPU kernel lies on them: they run in
+    plain PyTorch, and K1 to K3 must not launch."""
+    from circulantpreconditioner_tpu_torch.drivers import diffusion_implicit, wave_implicit
+    from circulantpreconditioner_tpu_torch.drivers.wave_implicit import identity_plus_csr
+    from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh, kershaw_mesh
+    from circulantpreconditioner_tpu_torch.models import DiffusionEquation, WaveSystem
+    from circulantpreconditioner_tpu_torch.ops.csr import CSRMatrix
+    from circulantpreconditioner_tpu_torch.solvers import AggregationVCyclePC
+    from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+
+    f32 = dict(device=dev, dtype=torch.float32)
+    cpu64 = dict(device=torch.device("cpu"), dtype=torch.float64)
+    rng = np.random.default_rng(15)
+    cube = ((-0.5, 0.5),) * 3
+    reset_kernel_launches()
+
+    # --- 15: main path G, GMRES + ILU(0) on the wave system at 32^3 ---------
+    ng = 32
+    wm = WaveSystem(cartesian_mesh(cube, (ng,) * 3), cfl=1e3 / 3, **f32)
+    A_I = identity_plus_csr(wm, torch.float32)
+    indptr, indices = A_I.indptr.cpu().numpy(), A_I.indices.cpu().numpy()
+    data = A_I.data.cpu().numpy().astype(np.float64)
+    n = A_I.shape[0]
+    t0 = time.perf_counter()
+    lower = pcs._level_schedule(indptr, indices, True, n)
+    upper = pcs._level_schedule(indptr, indices, False, n)
+    t_sched = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pcs._ilu0_factor_host(indptr, indices, data, lower)
+    t_factor = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ilu = pcs.ilu0(A_I)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    print(f"[15 host] ILU(0) of I + D, cartesian {ng}^3 wave, {n} rows, {A_I.indices.numel()} "
+          f"entries: level schedules {t_sched:.3f} s ({len(lower)} lower, {len(upper)} upper "
+          f"levels, at most {max(map(len, lower))} rows in a level), float64 factor "
+          f"{t_factor:.3f} s, the whole ILU0Preconditioner with its upload {t_build:.3f} s",
+          flush=True)
+    check(ilu.n_levels == (len(lower), len(upper)) == (98, 98),
+          f"ILU(0) levels {ilu.n_levels}, expected (98, 98)")
+    ilu64 = pcs.ilu0(CSRMatrix.from_scipy(A_I.to_scipy(), **cpu64))
+    r = rng.standard_normal(n)
+    z = ilu.apply(torch.as_tensor(r, **f32))
+    torch.cuda.synchronize()
+    z64 = ilu64.apply(torch.as_tensor(r, dtype=torch.float64)).numpy()
+    rel = np.abs(z.double().cpu().numpy() - z64).max() / np.abs(z64).max()
+    print(f"[15 ILU apply] card float32 against the CPU float64 apply of the same factor: "
+          f"max|dz|/max|z| {rel:.3e} (tol {TOL_KERNEL:g})", flush=True)
+    check(bool(torch.isfinite(z).all()) and rel <= TOL_KERNEL,
+          f"the card's ILU(0) apply is off the float64 apply: {rel:.3e}")
+
+    U0 = wm.initial_state()
+    A = wm.implicit_matvec()
+    for label, M in (("ILU(0)", ilu.apply),
+                     ("block-Jacobi ILU(0), 4 blocks", pcs.block_jacobi_ilu0(A_I, 4))):
+        step = wm.implicit_stepper(M=M, maxiter=100)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        U1, _, its, resnorm, conv = step(U0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        true_res = (torch.linalg.norm(A(U1) - U0) / torch.linalg.norm(U0)).item()
+        print(f"[15 main path G] GMRES + {label}, cartesian {ng}^3, maxiter 100: iterations "
+              f"{its}, converged {conv}, preconditioned residual {resnorm:.3e}, true "
+              f"||(I+D)U1 - U0||/||U0|| {true_res:.3e}, step wall {wall * 1e3:.1f} ms; {smi}",
+              flush=True)
+        check(bool(torch.isfinite(U1).all()) and (conv or its == 100),
+              f"GMRES + {label}: iterations {its}, converged {conv}, non-finite state")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        res = wave_implicit.main([str(ng)] * 3 + ["--maxits", "100", "--ntmax", "2", "--tmax",
+                                                  "1e9", "--device", "cuda", "--result-dir",
+                                                  out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    its = [d["extras"][0] for d in res.diagnostics]
+    conv = [d["extras"][2] for d in res.diagnostics]
+    print(f"[15 driver] wave_implicit {ng}^3 (no --pc: ILU(0)) --maxits 100: iterations {its}, "
+          f"converged {conv}, ms/step {[round(t * 1e3, 1) for t in res.step_seconds]}, driver "
+          f"wall {wall:.2f} s", flush=True)
+    check(res.iterations == 2 and bool(torch.isfinite(res.state).all()),
+          f"wave_implicit with ILU(0): {res.iterations} steps, or a non-finite state")
+
+    prof = device_profile(lambda: ilu.apply(U0), calls=5)
+    launches = sum(prof.counts.values()) / 5
+    apply_ms = median_ms({"ILU apply": lambda: ilu.apply(U0)}, calls=5, repeats=5)["ILU apply"]
+    apply_graph = graph_ms(lambda: ilu.apply(U0), calls=5, repeats=5)
+    print(f"[15 times] one ILU(0) apply at {ng}^3 ({sum(ilu.n_levels)} levels): {launches:.0f} "
+          f"kernel launches (torch.profiler over 5 applies), {apply_ms:.3f} ms by CUDA events, "
+          f"{apply_graph:.3f} ms by CUDA-graph replay, device time {sum(prof.values()):.3f} ms "
+          f"(profiler); largest: " + "; ".join(
+              f"{k[:40]} {v:.3f} ms x{prof.counts[k] // 5}" for k, v in
+              sorted(prof.items(), key=lambda kv: -kv[1])[:3]) + f"; {smi}", flush=True)
+
+    # --- 16: main path H, diffusion at 64^3 --------------------------------
+    nd = 64
+    dw = DiffusionEquation(cartesian_mesh(cube, (nd,) * 3), cfl=10.0, **f32)
+    b = dw.initial_state()
+    step = dw.implicit_stepper()
+    x, _, its, _, conv = step(b)
+    res_cg = (torch.linalg.norm(dw.implicit_matvec()(x) - b) / torch.linalg.norm(b)).item()
+    walls = step_walls(step, b)
+    print(f"[16 main path H] CG, wall cartesian {nd}^3, cfl 10: iterations {its}, converged "
+          f"{conv}, ||(I+D)x - b||/||b|| {res_cg:.3e} (tol {TOL_RESIDUAL:g}), wall per step "
+          f"{np.median(walls):.3f} ms (median of 3); {smi}", flush=True)
+    check(conv and res_cg < TOL_RESIDUAL, f"diffusion CG at {nd}^3: {its} iterations, "
+          f"converged {conv}, residual {res_cg:.3e}")
+
+    mesh_p = cartesian_mesh(cube, (nd,) * 3, periodic=True)
+    dp = DiffusionEquation(mesh_p, cfl=10.0, **f32)
+    b = dp.initial_state()
+    fft_step = dp.fft_stepper()
+    x_fft = fft_step(b)[0]
+    x_cg, _, its, _, conv = dp.implicit_stepper()(b)
+    rel = ((x_fft - x_cg).abs().max() / x_cg.abs().max()).item()
+    walls = step_walls(fft_step, b)
+    print(f"[16 main path H] FFT step (staged DFT), periodic {nd}^3: max|x_fft - x_cg|/max|x| "
+          f"{rel:.3e} (tol 1e-4; CG {its} iterations), wall per step {np.median(walls):.3f} ms "
+          f"(median of 3); {smi}", flush=True)
+    check(conv and rel <= 1e-4, f"the diffusion FFT step is off CG: {rel:.3e}")
+    k = (8, 4, 2)
+    c = mesh_p.cell_center
+    u0 = torch.as_tensor(np.sin(2 * np.pi * (c @ np.asarray(k, dtype=np.float64)))).to(**f32)
+    u = u0
+    for _ in range(3):
+        u = fft_step(u)[0]
+    amp = (torch.dot(u.double(), u0.double()) / torch.dot(u0.double(), u0.double())).item()
+    want = dp.exact_mode_decay(k, 3)
+    rel = abs(amp - want) / want
+    print(f"[16 main path H] Fourier mode k = {k} after 3 FFT steps: amplitude {amp:.8f}, "
+          f"exact_mode_decay {want:.8f}, relative difference {rel:.3e} (tol 1e-5)", flush=True)
+    check(rel <= 1e-5, f"the mode's decay is off exact_mode_decay: {rel:.3e}")
+
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        res = diffusion_implicit.main(["--mesh-family", "kershaw"] + [str(nd)] * 3
+                                      + ["--method", "pc", "--ntmax", "2", "--tmax", "1e9",
+                                         "--device", "cuda", "--result-dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    its = [d["extras"][0] for d in res.diagnostics]
+    conv = [d["extras"][2] for d in res.diagnostics]
+    print(f"[16 driver] diffusion_implicit Kershaw {nd}^3 --method pc: iterations {its}, "
+          f"converged {conv}, ms/step {[round(t * 1e3, 2) for t in res.step_seconds]}, driver "
+          f"wall {wall:.2f} s (the projection's host build included); {smi}", flush=True)
+    check(res.iterations == 2 and all(conv) and bool(torch.isfinite(res.state).all()),
+          f"diffusion --method pc: iterations {its}, converged {conv}")
+
+    # --- 17: main path I, the aggregation V-cycle at Kershaw 24^3 ----------
+    na = 24
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.perf_counter()
+        res = wave_implicit.main(["--mesh-family", "kershaw"] + [str(na)] * 3
+                                 + ["--pc", "aggvcycle", "--ntmax", "2", "--tmax", "1e9",
+                                    "--device", "cuda", "--result-dir", out_dir])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    its = [d["extras"][0] for d in res.diagnostics]
+    conv = [d["extras"][2] for d in res.diagnostics]
+    print(f"[17 main path I] wave_implicit Kershaw {na}^3 --pc aggvcycle: iterations {its} "
+          f"(the JAX package's record on its TPU: 111, results/bench_suite_r05.json), converged "
+          f"{conv}, ms/step {[round(t * 1e3, 1) for t in res.step_seconds]}, driver wall "
+          f"{wall:.2f} s; {smi}", flush=True)
+    check(res.iterations == 2 and all(conv) and bool(torch.isfinite(res.state).all()),
+          f"aggvcycle: iterations {its}, converged {conv}")
+    wk = WaveSystem(kershaw_mesh(cube, (na,) * 3), cfl=1e3 / 3, **f32)
+    wk.divergence
+    t0 = time.perf_counter()
+    agg = AggregationVCyclePC.from_bsr(wk.divergence, A0_apply=wk.implicit_matvec(), shift=1.0)
+    torch.cuda.synchronize()
+    t_agg = time.perf_counter() - t0
+    r = wk.initial_state()
+    v_ms = median_ms({"V-cycle": lambda: agg.apply(r)}, calls=10, repeats=5)["V-cycle"]
+    v_graph = graph_ms(lambda: agg.apply(r), calls=10, repeats=5)
+    prof = device_profile(lambda: agg.apply(r), calls=5)
+    print(f"[17 times] aggregation hierarchy at Kershaw {na}^3: {agg.n_levels} levels (block "
+          f"rows {[L.n for L in agg.levels]}, bottom {agg.bot_inv.shape[0] // 4}), host build "
+          f"{t_agg:.2f} s; one V-cycle apply {sum(prof.counts.values()) / 5:.0f} kernel "
+          f"launches, {v_ms:.3f} ms by CUDA events, {v_graph:.3f} ms by CUDA-graph replay, "
+          f"device time {sum(prof.values()):.3f} ms (profiler); one fine-level matvec "
+          f"{median_ms({'A': lambda: wk.implicit_matvec()(r)}, calls=10, repeats=5)['A']:.3f} ms "
+          f"by CUDA events; {smi}", flush=True)
+
+    launched = kernel_launches()
+    print(f"[15-17] K1, K2, K3 launches on paths G, H and I: {launched} (0 expected: no TPU "
+          f"kernel lies on them)", flush=True)
+    check(not any(launched.values()), f"paths G to I launched a kernel: {launched}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -1163,6 +1410,7 @@ def main() -> int:
     k2, mesh64, mi = wave_phases(dev, smi)
     k3 = fft_pc_phases(dev, smi, mesh64, mi)
     k2["launches_by_path"].update(k3.pop("k2_launches_by_path"))
+    slice6_phases(dev, smi)
 
     print(json.dumps({"kernels": [{
         "name": "fused_circulant_solve (K1)",

@@ -18,6 +18,11 @@ non-cartesian meshes (solvers/circulant_pc.py) in both implicit drivers. The
 staged DFT solver's complex y/z stages can run in a hand-written CUDA kernel
 (ops/complex_matmul.py, csrc/complex_matmul.cu).
 
+Slice 6: ILU(0) and block-Jacobi ILU(0) (the implicit wave driver's default
+preconditioner), the algebraic aggregation V-cycle, CG and BiCGStab, and the
+diffusion equation (model, assembly, projection preconditioner, driver). No
+TPU kernel lies on these paths: they run in plain PyTorch on the card.
+
 This package imports torch, numpy and scipy, never jax; the JAX package is
 the reference it is tested against (tests/test_torch_*.py).
 """
@@ -50,8 +55,18 @@ from circulantpreconditioner_tpu_torch.ops import (  # noqa: F401
     make_circulant_solver,
     make_plane_stencil_matvec,
 )
-from circulantpreconditioner_tpu_torch.solvers import KrylovResult, gmres, make_gmres  # noqa: F401
+from circulantpreconditioner_tpu_torch.solvers import (  # noqa: F401
+    AggregationVCyclePC,
+    KrylovResult,
+    bicgstab,
+    cg,
+    gmres,
+    make_bicgstab,
+    make_cg,
+    make_gmres,
+)
 from circulantpreconditioner_tpu_torch.models import (  # noqa: F401
+    DiffusionEquation,
     TimeLoopResult,
     TransportEquation,
     WaveSystem,

@@ -1,22 +1,28 @@
 """WaveSystem_SphericalExplosion implicit driver analog (PyTorch port).
 
 Implicit (I + D)Uⁿ⁺¹ = Uⁿ by GMRES, cfl = 1e3/dim, tol 1e-5, maxits 1000.
-Ported preconditioners:
+Preconditioners:
 
+- ilu0 (the default, the reference's sequential solver): ILU(0) of I + D;
+  bjacobi (the reference's MPI solver): ILU(0) of --n-blocks contiguous
+  diagonal blocks;
 - none, pbjacobi;
 - gridmg: the geometric-Galerkin grid V-cycle (meshes whose topology is a grid);
+- aggvcycle: the algebraic aggregation V-cycle (any mesh);
 - circulant2l, dct2l: the additive two-level projection PCs, the periodic
   block-circulant or the wall DCT/DST cartesian solve plus point-block
   Jacobi; dct2lm: the multiplicative DCT two-level cycle;
 - blockfft, dctfft: the direct block-circulant (periodic cartesian grid) or
   DCT/DST (wall cartesian grid) solve in place of GMRES.
 
-The two-level and grid PCs precondition from the right. Where the mesh has a
-gather-free stencil form the loop runs field-major, and on the GPU its
-matvec (and the V-cycle's fine level, and dct2lm's second operator apply) is
-kernel K2. The default stays ilu0, as in the JAX driver; it and the other
-preconditioners raise NotImplementedError naming their ROADMAP.md item.
+The two-level and V-cycle PCs precondition from the right, the others from
+the left. For none, pbjacobi, gridmg and the projection PCs, where the mesh
+has a gather-free stencil form, the loop runs field-major, and on the GPU its
+matvec (and the grid V-cycle's fine level, and dct2lm's second operator
+apply) is kernel K2. ilu0, bjacobi and aggvcycle run the cell-major loop, as
+in the JAX driver: they have no field-major form.
 
+    python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit 32 32 32
     python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit --mesh-family kershaw 64 64 64 --pc dct2lm
 """
 
@@ -34,12 +40,8 @@ from circulantpreconditioner_tpu_torch.drivers.common import (
 from circulantpreconditioner_tpu_torch.models import WaveSystem, run_time_loop
 from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
 
-# --pc value → what it needs, and its ROADMAP.md item
-NOT_PORTED = {
-    "ilu0": ("ILU(0)", "17"),
-    "bjacobi": ("block-Jacobi ILU(0)", "17"),
-    "aggvcycle": ("AggregationVCyclePC and the clustered-window SpMV", "19 (and 18)"),
-}
+# preconditioners with no field-major form: the cell-major loop only
+CELL_MAJOR_ONLY = ("ilu0", "bjacobi", "aggvcycle")
 
 
 def main(argv=None):
@@ -48,16 +50,13 @@ def main(argv=None):
                                     "dctfft", "circulant2l", "dct2l", "dct2lm",
                                     "gridmg", "aggvcycle"],
                    default="ilu0")
+    p.add_argument("--n-blocks", type=int, default=4, help="bjacobi partition count")
     p.add_argument("--rtol", type=float, default=1e-5)
     p.add_argument("--atol", type=float, default=1e-5)
     p.add_argument("--maxits", type=int, default=1000)
     p.add_argument("--shard", choices=["none", "rows"], default="none",
                    help="row-sharded GMRES (only 'none' is ported)")
     args = p.parse_args(argv)
-    if args.pc in NOT_PORTED:
-        what, item = NOT_PORTED[args.pc]
-        raise NotImplementedError(f"--pc {args.pc} needs {what}, not ported yet: "
-                                  f"see ROADMAP.md, slice 2, item {item}")
     if args.shard != "none":
         raise NotImplementedError(f"--shard {args.shard} needs the distributed SpMV, "
                                   "not ported yet: see ROADMAP.md, slice 3, item 24")
@@ -67,13 +66,18 @@ def main(argv=None):
     print(f"-- implicit wave: mesh {mesh.name} ({mesh.n_cells} cells), "
           f"dt={model.dt:.4g}, pc={args.pc}")
 
-    side = "right" if args.pc in ("circulant2l", "dct2l", "dct2lm", "gridmg") else "left"
+    side = ("right" if args.pc in ("circulant2l", "dct2l", "dct2lm", "gridmg", "aggvcycle")
+            else "left")
     gmres_kw = dict(rtol=args.rtol, atol=args.atol, maxiter=args.maxits, side=side)
     fm = False
     if args.pc == "blockfft":
         step = model.block_fft_stepper()  # direct solve, no GMRES
     elif args.pc == "dctfft":
         step, fm = model.dct_fft_stepper_fm(), True  # direct solve, no GMRES
+    elif args.pc in CELL_MAJOR_ONLY:
+        # implicit_stepper_fm(M_cm=None, M_fm=None) would run GMRES with no
+        # preconditioner: these never try the field-major loop
+        step = model.implicit_stepper(M=_cell_major_pc(args, model, dtype), **gmres_kw)
     else:
         M_cm, M_fm, make_M_cm = _preconditioners(args, mesh, model, device, dtype)
         # the field-major loop where the mesh has a gather-free stencil form;
@@ -102,6 +106,32 @@ def main(argv=None):
     if its:
         print(f"GMRES iterations per step: median {np.median(its):.0f}, max {np.max(its):.0f}")
     return res
+
+
+def identity_plus_csr(model, dtype):
+    """A = I + D as a CSRMatrix on the model's device, assembled as the JAX
+    driver assembles it for ILU(0): D's entries in the working dtype, the
+    sum in float64 (SciPy drops the entries that cancel to zero)."""
+    import scipy.sparse as sp
+
+    from circulantpreconditioner_tpu_torch.ops.csr import CSRMatrix
+
+    D = model.divergence.to_csr(dtype).to_scipy()
+    return CSRMatrix.from_scipy((sp.eye(D.shape[0]) + D).tocsr(), device=model.device,
+                                dtype=dtype)
+
+
+def _cell_major_pc(args, model, dtype):
+    """The cell-major ilu0, bjacobi or aggvcycle preconditioner."""
+    if args.pc == "aggvcycle":
+        from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import AggregationVCyclePC
+
+        return AggregationVCyclePC.from_bsr(model.divergence, A0_apply=model.implicit_matvec(),
+                                            shift=1.0, dtype=dtype).apply
+    A_I = identity_plus_csr(model, dtype)
+    if args.pc == "ilu0":
+        return pcs.ilu0(A_I).apply
+    return pcs.block_jacobi_ilu0(A_I, args.n_blocks)
 
 
 def _preconditioners(args, mesh, model, device, dtype):

@@ -1,9 +1,9 @@
 """Host-side mesh core: flat face/cell arrays for vectorized FV assembly.
 
 NumPy copy of circulantpreconditioner_tpu/mesh/core.py (same fields, same
-numbering), kept in the port so that it imports no JAX. The unstructured-mesh
-helpers (`set_periodic`, `validate`, …) come with the unstructured families
-(ROADMAP.md, slice 2, item 12a).
+numbering), kept in the port so that it imports no JAX. `set_periodic` is
+ported; the other unstructured-mesh helpers (`validate`, …) come with the
+unstructured families (ROADMAP.md, queue 1, items 12a and 23b).
 
 Replacement for the SOLVERLAB/CDMATH Mesh/Cell/Face object API the
 reference walks cell-by-cell (src/WaveSystem.cxx:109-176). Instead of an
@@ -62,6 +62,51 @@ class Mesh:
     @property
     def is_structured(self) -> bool:
         return self.structured_shape is not None
+
+    def boundary_faces(self) -> np.ndarray:
+        return np.nonzero(self.face_cells[:, 1] < 0)[0]
+
+    def set_periodic(self, axes=None, tol: float = 1e-6) -> None:
+        """Pair opposite boundary faces by translation along each axis in
+        `axes` (default: all), tag them "Periodic", and record the twin CELL
+        in `periodic_twin` and the twin FACE in `periodic_twin_face` (the
+        diffusion assembly's shared pair distance uses both face centres).
+        The boundary must lie on the bounding-box planes; faces are matched
+        by their in-plane centre coordinates."""
+        bb = self.bbox()
+        axes = list(range(self.dim)) if axes is None else list(axes)
+        scale = float((bb[:, 1] - bb[:, 0]).max())
+        if self.periodic_twin is None:
+            self.periodic_twin = np.full(self.n_faces, -1, dtype=np.int64)
+        if getattr(self, "periodic_twin_face", None) is None:
+            self.periodic_twin_face = np.full(self.n_faces, -1, dtype=np.int64)  # type: ignore[attr-defined]
+        code = self.groups.get("Periodic")
+        if code is None:
+            code = max(self.groups.values(), default=0) + 1
+            self.groups["Periodic"] = code
+        bnd = self.boundary_faces()
+        fc = self.face_center[bnd][:, : self.dim]
+        for d in axes:
+            lo = bnd[np.abs(fc[:, d] - bb[d, 0]) < tol * scale]
+            hi = bnd[np.abs(fc[:, d] - bb[d, 1]) < tol * scale]
+            if len(lo) != len(hi):
+                raise ValueError(f"axis {d}: {len(lo)} low vs {len(hi)} high boundary faces")
+            other = [a for a in range(self.dim) if a != d]
+            key = lambda f: tuple(  # noqa: E731
+                np.round(self.face_center[f, a] / (tol * scale)).astype(np.int64) for a in other)
+            table = {key(f): f for f in hi}
+            if len(table) != len(hi):
+                raise ValueError(f"axis {d}: duplicate face keys — decrease tol")
+            for f in lo:
+                tw = table.get(key(f))
+                if tw is None:
+                    raise ValueError(f"axis {d}: no periodic twin for face {f}")
+                self.periodic_twin[f] = self.face_cells[tw, 0]
+                self.periodic_twin[tw] = self.face_cells[f, 0]
+                self.periodic_twin_face[f] = tw  # type: ignore[attr-defined]
+                self.periodic_twin_face[tw] = f  # type: ignore[attr-defined]
+                self.face_group[f] = code
+                self.face_group[tw] = code
 
     def min_ratio_vol_surf(self) -> float:
         """min over cells of |V| / |∂V| — the reference's minRatioVolSurf used

@@ -52,27 +52,36 @@ def _polygon_area_normal_center(pts: np.ndarray):
 
 
 def _extract_faces(cells_arr: np.ndarray):
-    """Shared faces of a homogeneous hex mesh by sorted-vertex-key lexsort:
-    (face_vertices (nF, 4), face_cells (nF, 2) with -1 on the boundary)."""
+    """Shared faces of a homogeneous hex mesh: (face_vertices (nF, 4),
+    face_cells (nF, 2) with -1 on the boundary). Faces are numbered in the
+    order they are first met, cell by cell and face by face within a cell,
+    and keep the vertex order of that first meeting: the numbering of the
+    JAX package's native face extraction (native/fvcore.cpp), so that every
+    sum over faces runs in the same order and the assembled operators are
+    equal bit for bit. Found by sorted-vertex-key lexsort (stable: the first
+    of equal keys is the first met)."""
     n_cells = len(cells_arr)
-    faces = np.concatenate([cells_arr[:, list(f)] for f in _HEX_FACES], axis=0)
-    owner = np.tile(np.arange(n_cells, dtype=np.int64), len(_HEX_FACES))
+    nf = len(_HEX_FACES)
+    faces = cells_arr[:, np.asarray(_HEX_FACES).reshape(-1)].reshape(n_cells * nf, 4)
+    owner = np.repeat(np.arange(n_cells, dtype=np.int64), nf)
     key = np.sort(faces, axis=1)
     order = np.lexsort(key.T[::-1])
-    key_s, faces_s, owner_s = key[order], faces[order], owner[order]
+    key_s = key[order]
     new = np.ones(len(key_s), dtype=bool)
     new[1:] = (key_s[1:] != key_s[:-1]).any(axis=1)
-    fid = np.cumsum(new) - 1
-    nF = int(fid[-1]) + 1 if len(fid) else 0
+    group = np.cumsum(new) - 1
+    nF = int(group[-1]) + 1 if len(group) else 0
+    if np.bincount(group, minlength=nF).max(initial=0) > 2:
+        raise ValueError("broken mesh: face shared by >2 cells")
+    # number the groups by their first meeting
+    rank = np.empty(nF, dtype=np.int64)
+    rank[np.argsort(order[new], kind="stable")] = np.arange(nF)
+    fid = rank[group]
     fv = np.full((nF, 4), -1, dtype=np.int64)
     fc = np.full((nF, 2), -1, dtype=np.int64)
-    fv[fid[new]] = faces_s[new]
-    fc[fid[new], 0] = owner_s[new]
-    second = ~new
-    if second.any():
-        if np.bincount(fid, minlength=nF).max() > 2:
-            raise ValueError("broken mesh: face shared by >2 cells")
-        fc[fid[second], 1] = owner_s[second]
+    fv[fid[new]] = faces[order[new]]
+    fc[fid[new], 0] = owner[order[new]]
+    fc[fid[~new], 1] = owner[order[~new]]
     return fv, fc
 
 
@@ -112,11 +121,13 @@ def _fast_build_homogeneous(points, cells_arr, default_group, name):
     sign = np.where(dot < 0, -1.0, 1.0)
     normal_c = [n_ * sign for n_ in normal_c]
 
-    # V = (1/3) Σ_f (c_f · n_f) A_f, with the sign of each side's outward normal
+    # V = (1/3) Σ_f (c_f · n_f) A_f, with the sign of each side's outward
+    # normal; summed in the JAX package's order (first sides, then second)
     contrib = area * sum(c_ * n_ for c_, n_ in zip(center_c, normal_c)) / 3.0
     m2 = fc[:, 1] >= 0
-    cell_volume = (np.bincount(fc0, weights=contrib, minlength=n_cells)
-                   - np.bincount(fc[m2, 1], weights=contrib[m2], minlength=n_cells))
+    cell_volume = np.bincount(np.concatenate([fc0, fc[m2, 1]]),
+                              weights=np.concatenate([contrib, -contrib[m2]]),
+                              minlength=n_cells)
 
     mesh = Mesh(
         dim=3,

@@ -13,3 +13,4 @@ from circulantpreconditioner_tpu_torch.models.wave import (  # noqa: F401
     WaveSystem,
     spherical_explosion_wave,
 )
+from circulantpreconditioner_tpu_torch.models.diffusion import DiffusionEquation  # noqa: F401

@@ -1,7 +1,7 @@
-"""Vectorized finite-volume assembly: scalar transport (CSR) and the wave
-system (BSR). PyTorch counterpart of the transport and wave halves of
-circulantpreconditioner_tpu/ops/assembly.py; the diffusion assembly waits for
-ROADMAP.md, slice 2, item 12.
+"""Vectorized finite-volume assembly: scalar transport and diffusion (CSR),
+the wave system (BSR), and the periodic-grid stencils of the diffusion and
+wave operators. PyTorch counterpart of
+circulantpreconditioner_tpu/ops/assembly.py.
 
 The divergence matrix D ≈ dt·L gives the explicit step Uⁿ⁺¹ = Uⁿ − D Uⁿ and
 the implicit step (I + D) Uⁿ⁺¹ = Uⁿ. For a face with unit normal n outward of
@@ -78,6 +78,74 @@ def transport_divergence_csr(mesh: Mesh, dt: float, velocity, *, device: torch.d
                               np.concatenate(vals), device=device, dtype=dtype)
 
 
+def diffusion_csr(mesh: Mesh, dt: float, nu: float, *, device: torch.device,
+                  dtype: torch.dtype, boundary: str = "auto") -> CSRMatrix:
+    """Scalar diffusion operator D = dt·ν·L (two-point flux approximation,
+    no identity shift): the implicit heat step is (I + D)uⁿ⁺¹ = uⁿ.
+
+    TPFA flux per face: ν·|F|·(u_other − u_cell)/d, d = ‖c_other − c_cell‖.
+    A periodic face pair shares one distance d = ‖x_f − c_cell‖ +
+    ‖x_f' − c_twin‖ (the two face-to-centre legs across the wrap), so the
+    unscaled coefficient ν|F|/d is the same on both sides and V·L stays
+    symmetric on warped meshes; without a twin-face map the one-sided
+    distance is doubled. Other boundaries are insulated (no flux). L is
+    symmetric positive semi-definite, constants in its kernel."""
+    L = mesh.face_cells[:, 0]
+    R = mesh.face_cells[:, 1]
+    interior = R >= 0
+    cc = mesh.cell_center[:, : mesh.dim]
+    fc = mesh.face_center[:, : mesh.dim]
+    cell, other, _, area, group, twin_cell = _face_sides(mesh)
+    fctr = np.concatenate([fc, fc[interior]])
+
+    is_boundary = other < 0
+    m_int = ~is_boundary
+    d = np.linalg.norm(cc[other[m_int]] - cc[cell[m_int]], axis=1)
+    coef = dt * nu * area[m_int] / (d * mesh.cell_volume[cell[m_int]])
+    rows = [cell[m_int], cell[m_int]]
+    cols = [cell[m_int], other[m_int]]
+    vals = [coef, -coef]
+
+    per_code = mesh.groups.get("Periodic")
+    if boundary == "auto" and mesh.periodic_twin is not None and per_code is not None:
+        m_per = is_boundary & (group == per_code) & (twin_cell >= 0)
+        twin_face = getattr(mesh, "periodic_twin_face", None)
+        face_idx = np.concatenate([np.arange(mesh.n_faces), np.arange(mesh.n_faces)[interior]])
+        tf = (np.full(mesh.n_faces, -1, dtype=np.int64) if twin_face is None
+              else np.asarray(twin_face))[face_idx[m_per]]
+        d_self = np.linalg.norm(fctr[m_per] - cc[cell[m_per]], axis=1)
+        d_twin = np.where(tf >= 0,
+                          np.linalg.norm(fc[np.maximum(tf, 0)] - cc[twin_cell[m_per]], axis=1),
+                          d_self)  # no twin-face map: the doubled one-sided distance
+        d = d_self + d_twin
+        coef = dt * nu * area[m_per] / (d * mesh.cell_volume[cell[m_per]])
+        rows += [cell[m_per], cell[m_per]]
+        cols += [cell[m_per], twin_cell[m_per]]
+        vals += [coef, -coef]
+    # all other boundaries: no flux (insulated)
+
+    n = mesh.n_cells
+    return CSRMatrix.from_coo(n, n, np.concatenate(rows), np.concatenate(cols),
+                              np.concatenate(vals), device=device, dtype=dtype)
+
+
+def diffusion_stencil(dim: int, dt: float, nu: float, spacing_xyz):
+    """Periodic-uniform-grid stencil (offsets_zyx, (k, 1, 1) coefficients) of
+    D = dt·ν·L, the input of the m = 1 block-circulant solvers (the FFT
+    direct solve and the diffusion projection PC)."""
+    h = np.asarray(spacing_xyz, dtype=np.float64)[:dim]
+    lam = dt * nu / (h * h)  # xyz
+    offsets = [(0,) * dim]
+    blocks = [[[2.0 * float(lam.sum())]]]
+    for d_xyz in range(dim):
+        for sgn in (+1, -1):
+            off = [0] * dim
+            off[dim - 1 - d_xyz] = sgn  # zyx order
+            offsets.append(tuple(off))
+            blocks.append([[-float(lam[d_xyz])]])
+    return offsets, np.asarray(blocks)
+
+
 def wave_jacobian_blocks(normal: np.ndarray, c0: float) -> tuple[np.ndarray, np.ndarray]:
     """Batched A(n) and |A|(n) for the linear wave system; normal (k, dim).
     Mirrors jacobianMatrices (WaveSystem.cxx:92-107) without the coeff factor."""
@@ -139,8 +207,7 @@ def wave_divergence_bsr(mesh: Mesh, dt: float, c0: float, *, device: torch.devic
 
 def wave_block_stencil(dim: int, dt: float, c0: float, spacing) -> tuple[list, np.ndarray]:
     """Periodic-uniform-grid block stencil {offset_zyx: B} of I + D for the
-    wave system (the input of the block-circulant solver, ROADMAP.md,
-    slice 2, item 12b)."""
+    wave system (the input of the block-circulant solver)."""
     nb = dim + 1
     h = np.asarray(spacing, dtype=np.float64)[:dim]
     offsets: list[tuple[int, ...]] = []

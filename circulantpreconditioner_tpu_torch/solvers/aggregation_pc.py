@@ -1,23 +1,26 @@
-"""Geometric-Galerkin grid V-cycle preconditioner for meshes whose topology
-is a grid (the warped Kershaw hexahedra): PyTorch counterpart of
-`GridVCyclePC` in circulantpreconditioner_tpu/solvers/aggregation_pc.py, for
-one cell per grid site.
+"""Multilevel V-cycle preconditioners built from Galerkin coarse operators
+(PyTorch counterpart of circulantpreconditioner_tpu/solvers/aggregation_pc.py).
 
-Each level coarsens 2×2×2 boxes of sites. The coarse operators are exact
-Galerkin restrictions R·A·P of the assembled fine operator (piecewise
-constant P, mean R, R·P = I), built on the host with SciPy, so they inherit
-the warped coefficients. Every level applies its operator as a gather-free
-7-point varying stencil; the fine level uses the model's own operators
-(kernel K2 on the GPU). Transfers are reshapes, sums and broadcasts; the
-smoother is ω-damped point-block Jacobi, V(1,1) by default, and the bottom
-level is a dense inverse (one matmul).
+The coarse operators are exact Galerkin restrictions R·A·P of the assembled
+fine operator (piecewise-constant P, mean R, R·P = I), built on the host with
+SciPy, so they inherit the warped coefficients. The smoother is ω-damped
+point-block Jacobi, V(1,1) by default, and the bottom level is a dense
+inverse (one matmul). Two hierarchies:
 
-The ω = 0.8 damping is load-bearing: undamped block-Jacobi smoothing
-amplifies high-frequency error on the upwind wave operator.
+- `AggregationVCyclePC` (algebraic, any mesh): consecutive chunks of `factor`
+  block rows form the aggregates, so the transfers are reshapes, sums and
+  broadcasts; the coarse operators are clustered-window SpMVs
+  (ops/window_spmv.py); ω = 1.
+- `GridVCyclePC` (meshes whose topology is a grid, the warped Kershaw
+  hexahedra; one cell per grid site): each level coarsens 2×2×2 boxes of
+  sites and applies its operator as a gather-free 7-point varying stencil;
+  the fine level uses the model's own operators (kernel K2 on the GPU). The
+  ω = 0.8 damping is load-bearing: undamped block-Jacobi smoothing amplifies
+  high-frequency error on the upwind wave operator.
 
-The supercell first level (cells_per_site > 1) and the algebraic
-`AggregationVCyclePC`, which needs the clustered-window SpMV, wait for
-ROADMAP.md, slice 2, items 18 and 19.
+The supercell first level of the grid hierarchy (cells_per_site > 1), with
+the field-major transfers of `_Level` it needs, waits for ROADMAP.md, queue 1
+(the tet and supercell path).
 """
 
 from __future__ import annotations
@@ -30,6 +33,39 @@ import numpy as np
 import torch
 
 from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix
+from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
+
+
+@dataclass
+class _Level:
+    """An aggregation level: `factor` consecutive block rows per aggregate."""
+
+    A: Callable            # cell-major flat operator apply
+    Dinv: torch.Tensor     # (n, b, b) inverted diagonal blocks (the smoother)
+    cnt_inv: torch.Tensor  # (n_agg,) 1/|aggregate|, for the mean restriction
+    n: int                 # block rows at this level
+    b: int                 # block size
+    factor: int            # aggregation factor to the next level
+    n_agg: int             # block rows at the next level
+
+
+def _smooth(L: _Level, omega: float, r: torch.Tensor) -> torch.Tensor:
+    z = torch.einsum("nij,nj->ni", L.Dinv, r.reshape(-1, L.b)).reshape(-1)
+    return omega * z if omega != 1.0 else z
+
+
+def _restrict(L: _Level, r: torch.Tensor) -> torch.Tensor:
+    rb = r.reshape(-1, L.b)
+    pad = L.n_agg * L.factor - L.n
+    if pad:
+        rb = torch.nn.functional.pad(rb, (0, 0, 0, pad))
+    s = rb.reshape(L.n_agg, L.factor, L.b).sum(dim=1)
+    return (s * L.cnt_inv[:, None]).reshape(-1)
+
+
+def _prolong(L: _Level, zc: torch.Tensor) -> torch.Tensor:
+    zb = zc.reshape(L.n_agg, 1, L.b).expand(L.n_agg, L.factor, L.b)
+    return zb.reshape(-1, L.b)[:L.n].reshape(-1)
 
 
 @dataclass
@@ -105,11 +141,12 @@ def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
             return x.reshape(-1, bot_b).T.reshape(-1)
         return bot_inv @ r
     L = levels[l]
-    if fm:
-        smooth, restrict, prolong = _grid_smooth_fm, _grid_restrict_fm, _grid_prolong_fm
-        A = L.A_fm
-    else:
-        smooth, restrict, prolong, A = _grid_smooth, _grid_restrict, _grid_prolong, L.A
+    if isinstance(L, _GridLevel):
+        smooth, restrict, prolong = ((_grid_smooth_fm, _grid_restrict_fm, _grid_prolong_fm) if fm
+                                     else (_grid_smooth, _grid_restrict, _grid_prolong))
+    else:  # an aggregation level (cell-major only: GridVCyclePC alone has apply_fm)
+        smooth, restrict, prolong = _smooth, _restrict, _prolong
+    A = L.A_fm if fm else L.A
     z = smooth(L, omega, r)
     for _ in range(n_smooth[0] - 1):
         z = z + smooth(L, omega, r - A(z))
@@ -125,11 +162,11 @@ def _shifted_apply(Dmv, shift, x):
     return shift * x + Dmv(x)
 
 
-class GridVCyclePC:
-    """M⁻¹ r ≈ A⁻¹ r by one V(pre, post) cycle over geometric-Galerkin grid
-    levels; see the module docstring."""
+class AggregationVCyclePC:
+    """M⁻¹ r ≈ A⁻¹ r by one V(pre, post) cycle over Galerkin coarse levels;
+    see the module docstring."""
 
-    def __init__(self, levels, bot_inv: torch.Tensor, n_smooth=(1, 1), omega: float = 0.8,
+    def __init__(self, levels, bot_inv: torch.Tensor, n_smooth=(1, 1), omega: float = 1.0,
                  b: int | None = None):
         self.levels = tuple(levels)
         self.bot_inv = bot_inv
@@ -138,6 +175,59 @@ class GridVCyclePC:
         # block size for the bottom level's field-major relayout, needed
         # when the whole mesh fits the bottom (zero levels)
         self.b = int(b) if b is not None else (levels[-1].b if levels else 1)
+
+    @classmethod
+    def from_bsr(cls, D: BSRMatrix, A0_apply=None, shift: float = 1.0, factor: int = 4,
+                 bottom_max: int = 1200, n_smooth=(1, 1), omega: float = 1.0,
+                 dtype: torch.dtype | None = None, max_levels: int = 10, window_G: int = 8):
+        """Preconditioner of A = shift·I + D, D the assembled block operator.
+        A0_apply: the production fine-level matvec; a clustered-window
+        operator of D where None."""
+        import scipy.sparse as sp
+
+        device = D.blocks.device
+        dtype = dtype or D.blocks.dtype
+        b = D.block_size
+        A0 = (shift * sp.identity(D.shape[0], format="csr")
+              + D.to_scipy().astype(np.float64)).tocsr()
+        if A0_apply is None:
+            W0 = WindowedBlockOperator.from_bsr(D, G=window_G, dtype=dtype)
+            A0_apply = functools.partial(_shifted_apply, W0.matvec, shift)
+
+        levels = []
+        A_l, apply_l = A0, A0_apply
+        n_l = A0.shape[0] // b
+        for _ in range(max_levels):
+            if n_l <= bottom_max:
+                break
+            n_agg = -(-n_l // factor)
+            agg = np.arange(n_l) // factor
+            cnt = np.bincount(agg, minlength=n_agg).astype(np.float64)
+            levels.append(_Level(A=apply_l, Dinv=_block_diag_inv(A_l, b, device, dtype),
+                                 cnt_inv=torch.as_tensor(1.0 / cnt).to(device=device,
+                                                                       dtype=dtype),
+                                 n=n_l, b=b, factor=factor, n_agg=n_agg))
+            A_l = _galerkin_map(A_l, b, agg, n_agg)
+            n_l = n_agg
+            apply_l = _windowed_from_scipy_bsr(A_l, b, n_l, window_G, device, dtype).matvec
+
+        bot_inv = torch.as_tensor(np.linalg.inv(A_l.toarray())).to(device=device, dtype=dtype)
+        return cls(levels, bot_inv, n_smooth=n_smooth, omega=omega, b=b)
+
+    def apply(self, r: torch.Tensor) -> torch.Tensor:
+        """Cell-major flat apply."""
+        return _vcycle(self.levels, self.bot_inv, self.n_smooth, self.omega, 0, r,
+                       bot_b=self.b)
+
+    __call__ = apply
+
+    @property
+    def n_levels(self) -> int:
+        return len(self.levels) + 1
+
+
+class GridVCyclePC(AggregationVCyclePC):
+    """The geometric-Galerkin grid V-cycle; see the module docstring."""
 
     @classmethod
     def from_grid_model(cls, D: BSRMatrix, shape_xyz, cells_per_site: int = 1,
@@ -202,11 +292,6 @@ class GridVCyclePC:
         bot_inv = torch.as_tensor(np.linalg.inv(A_l.toarray())).to(device=device, dtype=dtype)
         return cls(levels, bot_inv, n_smooth=n_smooth, omega=omega, b=b)
 
-    def apply(self, r: torch.Tensor) -> torch.Tensor:
-        """Cell-major flat apply."""
-        return _vcycle(self.levels, self.bot_inv, self.n_smooth, self.omega, 0, r,
-                       bot_b=self.b)
-
     def apply_fm(self, g: torch.Tensor) -> torch.Tensor:
         """Field-major flat apply (g.reshape(b, n) is the field view), with
         no relayout above the bottom level. Raises when a level has no
@@ -217,12 +302,6 @@ class GridVCyclePC:
                              "operator (periodic grid_last stencils); use apply")
         return _vcycle(self.levels, self.bot_inv, self.n_smooth, self.omega, 0, g, fm=True,
                        bot_b=self.b)
-
-    __call__ = apply
-
-    @property
-    def n_levels(self) -> int:
-        return len(self.levels) + 1
 
 
 def _galerkin_map(A_csr, b: int, agg: np.ndarray, n_agg: int):
@@ -259,3 +338,12 @@ def _block_diag_inv(A_csr, b: int, device: torch.device, dtype: torch.dtype) -> 
     blocks = np.zeros((n, b, b))
     blocks[br[m], coo.row[m] % b, coo.col[m] % b] = coo.data[m]
     return torch.as_tensor(np.linalg.inv(blocks)).to(device=device, dtype=dtype)
+
+
+def _windowed_from_scipy_bsr(A_csr, b: int, n_brows: int, G: int, device: torch.device,
+                             dtype: torch.dtype) -> WindowedBlockOperator:
+    """Clustered-window operator from a SciPy CSR with b×b block structure."""
+    Ab = A_csr.tobsr(blocksize=(b, b))
+    brows = np.repeat(np.arange(n_brows), np.diff(Ab.indptr))
+    return WindowedBlockOperator.from_block_coo(n_brows, brows, Ab.indices, Ab.data, G=G,
+                                                device=device, dtype=dtype)

@@ -11,16 +11,16 @@ circulantpreconditioner_tpu/solvers/circulant_pc.py).
   volume deposits of the cells ("volume");
 - P_back (cells ← grid): each cell takes the voxel that holds its centroid;
 - C⁻¹: the scalar transport circulant (`CirculantProjectionPC`), the periodic
-  block-circulant wave operator (`BlockCirculantProjectionPC`) or the
-  wall-boundary DCT/DST wave solve (`DCTBlockProjectionPC`).
+  block-circulant wave operator (`BlockCirculantProjectionPC`), the
+  wall-boundary DCT/DST wave solve (`DCTBlockProjectionPC`) or the periodic
+  diffusion operator I + dt·ν·L_h (`DiffusionProjectionPC`).
 
 P and P_back are built once on the host (NumPy, SciPy's cKDTree) and applied
 on the device, as clustered-window operators where their windows fit in
 256 MiB (ops/window_spmv.py), the same choice as the JAX package's, else as
 CSR. `projection="identity"` maps recovered-grid cells one to one onto the
 voxels; on a mesh where that does not apply it raises (the JAX package
-samples instead). The diffusion projection PC waits for the diffusion slice
-(ROADMAP.md, slice 3, item 22).
+samples instead).
 
 The periodic coarse solves run by torch.fft (cuFFT on the GPU) by default.
 `use_matmul_dft=True` selects the staged DFT by matmul instead, the JAX
@@ -342,6 +342,36 @@ class CirculantProjectionPC:
         self.solver = MatmulCirculantSolver.from_operator(self.op) if use_matmul_dft else self.op
         _set_projection(self, mesh, n_xyz, bbox, samples_per_axis, device, dtype, projection,
                         _SCALAR_APPLIES, self.solver)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return self.apply(r)
+
+
+class DiffusionProjectionPC:
+    """Projection PC for the diffusion equation on non-cartesian meshes:
+    the residual projected onto the derived cartesian grid, (I + dt·ν·L_h)⁻¹
+    applied in frequency space (the m = 1 block-circulant solve of
+    ops/assembly.py::diffusion_stencil), and projected back."""
+
+    def __init__(self, mesh: Mesh, dt: float, nu: float, *, device: torch.device,
+                 dtype: torch.dtype, samples_per_axis: int = 3, use_matmul_dft: bool = False,
+                 projection: str = "auto"):
+        from circulantpreconditioner_tpu_torch.ops.assembly import diffusion_stencil
+
+        n_xyz, spacing, _, bbox = derive_grid_context(mesh, [0.0] * mesh.dim, dt)
+        self.n_xyz = n_xyz
+        offsets, blocks = diffusion_stencil(mesh.dim, dt, nu, spacing)
+        blocks = blocks.copy()
+        blocks[0] += 1.0  # the symbol of I + D
+        shape_zyx = tuple(reversed(n_xyz))
+        if use_matmul_dft:
+            self.op = MatmulBlockCirculantSolver.from_stencil(
+                shape_zyx, offsets, blocks, device=device, dtype=dtype, precision="high")
+        else:
+            self.op = BlockCirculantOperator.from_stencil(shape_zyx, offsets, blocks,
+                                                          device=device, dtype=dtype)
+        _set_projection(self, mesh, n_xyz, bbox, samples_per_axis, device, dtype, projection,
+                        _BLOCK_APPLIES, self.op)
 
     def __call__(self, r: torch.Tensor) -> torch.Tensor:
         return self.apply(r)

@@ -235,8 +235,12 @@ def test_scalar_pc_on_cartesian_grid_is_the_circulant_solve():
 def test_dct2l_third_step_differs_by_roundoff():
     """Three dct2l steps at Kershaw 12³ in float64, the drivers' field-major
     GMRES (side right, rtol = atol = 1e-5), in both packages. The first two
-    steps take equal iterations (29 and 19); the third takes 13 in JAX and 14
-    here. That is roundoff, amplified by GMRES on this two-level system:
+    steps take equal iterations (29 and 19). The third took 13 in JAX and 14
+    here while the port numbered the mesh faces in another order than the
+    JAX package (its sums over faces then rounded differently); with the
+    JAX numbering it takes 13 in both, and the bound below still allows one
+    iteration either way. The difference is roundoff, amplified by GMRES on
+    this two-level system:
 
     - in step 1 the two packages' residual estimates agree to 1e-14 through
       iteration 16, then part by a factor of about 10 per iteration (1e-11 at
@@ -246,8 +250,8 @@ def test_dct2l_third_step_differs_by_roundoff():
       within a factor 10 of each other;
     - so by the third step, whose right-hand sides differ by about 1e-8, the
       histories differ by percents, and at iteration 13 the two residuals
-      straddle the stopping threshold, each within 10 % of it (JAX 0.3 %
-      below, the port 8 % above)."""
+      lie within 10 % of the stopping threshold (with the other face order,
+      JAX 0.3 % below, the port 8 % above)."""
     mj, mt = _meshes((12, 12, 12))
     wj = JWave(mj, cfl=1e3 / 3, dtype=jnp.float64)
     wt = TWave(mt, cfl=1e3 / 3, **F64)

@@ -1,7 +1,9 @@
 """Tests of the port that need the GPU: kernels K1, K2 and K3 against their
 plain versions, one GMRES step preconditioned through K1, one grid-V-cycle
 GMRES step on the wave system through K2, the staged DFT solve through K3,
-and one dct2lm GMRES step through K2. They skip without a GPU.
+one dct2lm GMRES step through K2, and the paths with no hand-written kernel
+(ILU(0) and block-Jacobi ILU(0), diffusion, the aggregation V-cycle) on the
+card against the CPU. They skip without a GPU.
 
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
@@ -31,8 +33,8 @@ from circulantpreconditioner_tpu_torch.ops.circulant import CirculantTransportOp
 @pytest.fixture
 def cuda():
     if not torch.cuda.is_available():
-        pytest.skip("K1, K2 and K3 are CUDA kernels: need a GPU (torch.cuda.is_available() "
-                    "is False)")
+        pytest.skip("runs on the card (K1, K2 and K3 are CUDA kernels): need a GPU "
+                    "(torch.cuda.is_available() is False)")
     return torch.device("cuda")
 
 
@@ -288,3 +290,78 @@ def test_dct2lm_gmres_step_launches_k2(cuda):
     ref = make_gmres(A_plain, pcs.multiplicative(A_plain, adapter, pj), side="right")(G0, G0)
     assert ref.converged and abs(ref.iters - iters) <= 1
     assert (G1 - ref.x).abs().max().item() <= 1e-4 * ref.x.abs().max().item()
+
+
+# --- paths with no hand-written kernel: ILU(0), diffusion, aggregation -------
+# These run in plain PyTorch on the card; the tests hold the card's float32
+# run to the CPU's float64 one of the same code.
+
+
+@pytest.mark.gpu
+def test_ilu0_apply_and_gmres_step_on_card(cuda):
+    """The ILU(0) apply on the card agrees with the CPU float64 apply of the
+    same factor to 1e-5 · max|z|, and a GMRES + ILU(0) step (and a
+    block-Jacobi one) at cartesian 16³ converges."""
+    from circulantpreconditioner_tpu_torch.drivers.wave_implicit import identity_plus_csr
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+    from circulantpreconditioner_tpu_torch.ops.csr import CSRMatrix
+    from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+
+    model = WaveSystem(cartesian_mesh(((-0.5, 0.5),) * 3, (16, 16, 16)), cfl=1e3 / 3,
+                       device=cuda, dtype=torch.float32)
+    A_I = identity_plus_csr(model, torch.float32)
+    ilu = pcs.ilu0(A_I)
+    assert ilu.n_levels == (50, 50)
+    ilu64 = pcs.ilu0(CSRMatrix.from_scipy(A_I.to_scipy(), device=torch.device("cpu"),
+                                          dtype=torch.float64))
+    r = np.random.default_rng(15).standard_normal(A_I.shape[0])
+    z = ilu.apply(torch.as_tensor(r, device=cuda, dtype=torch.float32)).double().cpu().numpy()
+    z64 = ilu64.apply(torch.as_tensor(r)).numpy()
+    assert np.abs(z - z64).max() <= 1e-5 * np.abs(z64).max()
+    U0 = model.initial_state()
+    for M in (ilu.apply, pcs.block_jacobi_ilu0(A_I, 4)):
+        U1, _, iters, _, converged = model.implicit_stepper(M=M, maxiter=500)(U0)
+        assert converged and iters > 0 and bool(torch.isfinite(U1).all())
+
+
+@pytest.mark.gpu
+def test_diffusion_cg_fft_and_pc_on_card(cuda):
+    """Diffusion at 32³: a CG step meets the 1e-4 residual gate, the FFT
+    step agrees with CG to 1e-4, and GMRES with the projection PC converges
+    on a Kershaw 16³ mesh."""
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
+    from circulantpreconditioner_tpu_torch.models import DiffusionEquation
+    from circulantpreconditioner_tpu_torch.solvers.circulant_pc import DiffusionProjectionPC
+
+    cube = ((-0.5, 0.5),) * 3
+    d = DiffusionEquation(cartesian_mesh(cube, (32,) * 3, periodic=True), cfl=10.0,
+                          device=cuda, dtype=torch.float32)
+    b = d.initial_state()
+    x_cg, _, _, _, converged = d.implicit_stepper()(b)
+    assert converged
+    assert (torch.linalg.norm(d.implicit_matvec()(x_cg) - b) / torch.linalg.norm(b)).item() < 1e-4
+    x_fft = d.fft_stepper()(b)[0]
+    assert (x_fft - x_cg).abs().max().item() <= 1e-4 * x_cg.abs().max().item()
+    dk = DiffusionEquation(kershaw_mesh(cube, (16,) * 3), device=cuda, dtype=torch.float32)
+    pc = DiffusionProjectionPC(dk.mesh, dk.dt, dk.nu, device=cuda, dtype=torch.float32)
+    x, _, iters, _, converged = dk.implicit_stepper(M=pc.apply, method="gmres")(dk.initial_state())
+    assert converged and iters > 0 and bool(torch.isfinite(x).all())
+
+
+@pytest.mark.gpu
+def test_aggvcycle_gmres_step_on_card(cuda):
+    """A GMRES step right-preconditioned by the aggregation V-cycle at
+    Kershaw 12³ converges on the card within one iteration of the CPU float64
+    run."""
+    from circulantpreconditioner_tpu_torch.solvers import AggregationVCyclePC
+
+    steps = []
+    for device, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float64)):
+        model = _kershaw_wave((12, 12, 12), device, dtype)
+        pc = AggregationVCyclePC.from_bsr(model.divergence, A0_apply=model.implicit_matvec(),
+                                          shift=1.0)
+        assert pc.n_levels == 2
+        steps.append(model.implicit_stepper(M=pc.apply, side="right")(model.initial_state()))
+    (x, _, iters, _, converged), ref = steps
+    assert converged and ref[4] and abs(iters - ref[2]) <= 1
+    assert (x.double().cpu() - ref[0]).abs().max().item() <= 1e-4 * ref[0].abs().max().item()

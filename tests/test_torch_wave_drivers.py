@@ -1,6 +1,8 @@
 """The port's wave drivers (`--device cpu --f64`) against the JAX drivers on
-the same command lines: the same step count, the same GMRES iterations in
-every step, and final states within 1e-10 × max|U|. GMRES without a
+the same command lines, every --pc of the implicit driver but the direct
+solves (tested in test_torch_circulant_pc.py):
+the same step count, the same GMRES iterations in every step, and final
+states within 1e-10 × max|U|. GMRES without a
 preconditioner runs at --cfl 10 on the Kershaw mesh: at the default cfl
 1e3/3 it amplifies roundoff past any such bound (see
 test_torch_wave_model.py). Also the CLI repairs: --kershaw-eps,
@@ -42,7 +44,7 @@ def test_wave_explicit_driver_matches_jax(tmp_path, mesh):
 
 
 @pytest.mark.parametrize("mesh", [KERSHAW, CART])
-@pytest.mark.parametrize("pc", ["gridmg", "pbjacobi", "none"])
+@pytest.mark.parametrize("pc", ["gridmg", "pbjacobi", "none", "ilu0", "bjacobi", "aggvcycle"])
 def test_wave_implicit_driver_matches_jax(tmp_path, mesh, pc):
     extra = ["--cfl", "10"] if pc == "none" and mesh is KERSHAW else []
     argv = _args(tmp_path, mesh + ["--pc", pc] + extra, ntmax=2)
@@ -51,15 +53,19 @@ def test_wave_implicit_driver_matches_jax(tmp_path, mesh, pc):
     assert all(d["extras"][2] for d in rt.diagnostics)  # GMRES converged every step
 
 
-@pytest.mark.parametrize("pc,item", [("ilu0", "17"), ("bjacobi", "17"), ("aggvcycle", "19")])
-def test_unported_pc_raises_naming_its_item(tmp_path, pc, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md, slice 2, item {item}"):
-        t_imp.main(_args(tmp_path, KERSHAW + ["--pc", pc, "--device", "cpu"]))
+def test_default_pc_is_ilu0_and_matches_jax(tmp_path, capsys):
+    """With no --pc the driver runs GMRES + ILU(0), the reference's
+    sequential solver, as the JAX driver does."""
+    argv = _args(tmp_path, KERSHAW, ntmax=2)
+    rt = t_imp.main(argv + ["--device", "cpu"])
+    assert "pc=ilu0" in capsys.readouterr().out
+    _same(rt, j_imp.main(argv))
+    _same(rt, t_imp.main(argv + ["--device", "cpu", "--pc", "ilu0"]))
 
 
-def test_default_pc_is_ilu0_and_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="ILU"):
-        t_imp.main(_args(tmp_path, CART + ["--device", "cpu"]))
+def test_shard_rows_raises_naming_its_item(tmp_path):
+    with pytest.raises(NotImplementedError, match="item 24"):
+        t_imp.main(_args(tmp_path, CART + ["--shard", "rows", "--device", "cpu"]))
 
 
 @pytest.mark.parametrize("extra", [["--mesh-family", "kershawtet"], ["--shard", "slab"]])

@@ -1,11 +1,13 @@
 """The port's hexahedral mesh generators against the JAX package's.
 
-The JAX package extracts faces with its optional g++ helper when that builds,
-and the port always by the NumPy lexsort, so face order may differ. Cells are
-numbered identically and compared directly; faces are compared as a set,
-keyed by their sorted vertex ids, with each face's (L, R) pair put in
-ascending order and its normal turned to match. Tolerance 1e-14 (the same
-float64 geometry, sums in another order)."""
+The JAX package extracts faces with its optional g++ helper when that builds
+(numbering them in the order they are first met, cell by cell), else by a
+NumPy lexsort (in sorted-key order); the port numbers them as the helper
+does. Cells are numbered identically and compared directly; faces are
+compared as a set, keyed by their sorted vertex ids, with each face's (L, R)
+pair put in ascending order and its normal turned to match, at 1e-14. The
+port's numbering is held to a plain first-meeting loop, and, where the JAX
+helper builds, the whole mesh to the JAX package's bit for bit."""
 
 import numpy as np
 import pytest
@@ -51,6 +53,38 @@ def test_generator_matches_jax(family, n):
     assert mt.groups == mj.groups
     assert abs(mt.min_ratio_vol_surf() - mj.min_ratio_vol_surf()) <= TOL * mj.min_ratio_vol_surf()
     np.testing.assert_allclose(mt.bbox(), mj.bbox(), rtol=0, atol=TOL)
+
+
+def _first_meeting_faces(cells):
+    """Faces numbered as first met, cell by cell and face by face: (vertex
+    ids in the order of the first meeting, (first cell, second cell))."""
+    index, fv, fc = {}, [], []
+    for c, cell in enumerate(np.asarray(cells)):
+        for face in tu._HEX_FACES:
+            verts = tuple(int(cell[i]) for i in face)
+            key = tuple(sorted(verts))
+            if key in index:
+                fc[index[key]][1] = c
+            else:
+                index[key] = len(fv)
+                fv.append(verts)
+                fc.append([c, -1])
+    return np.array(fv), np.array(fc)
+
+
+@pytest.mark.parametrize("n", [(3, 2, 2), (5, 4, 3)])
+def test_faces_numbered_by_first_meeting_as_jax(n):
+    from circulantpreconditioner_tpu.native import native_available
+
+    mt = tu.kershaw_mesh(BOUNDS, n, eps=0.3)
+    fv, fc = _first_meeting_faces(mt.cell_vertices)
+    np.testing.assert_array_equal(mt.face_vertices, fv)
+    np.testing.assert_array_equal(mt.face_cells, fc)
+    if native_available():  # the JAX package's own numbering: every array equal bit for bit
+        mj = ju.kershaw_mesh(BOUNDS, n, eps=0.3)
+        for name in ("face_cells", "face_vertices", "face_area", "face_normal", "face_center",
+                     "face_group", "cell_volume", "cell_center"):
+            np.testing.assert_array_equal(getattr(mt, name), np.asarray(getattr(mj, name)))
 
 
 def test_kershaw_eps_changes_geometry_not_topology():
