@@ -101,9 +101,24 @@ Phases, one stdout line each (more for the drivers' own logs):
    (every step converges); the wall per step of each;
 17. main path I, wave_implicit --pc aggvcycle on Kershaw 24³, 2 steps (every
    step converges): iterations, the hierarchy's levels and host build, and
-   one V-cycle apply by CUDA events and by CUDA-graph replay.
-Paths G, H and I launch none of K1, K2 and K3; their launch counts are
-printed (0 expected) and checked.
+   one V-cycle apply by CUDA events and by CUDA-graph replay;
+18. main path J, the tet meshes, as bench_suite.py builds its Kershaw-tet
+   50³ rung (750,000 tets, 3,000,000 unknowns): the host build (mesh, BSR,
+   block-sparse supercell operator) and its device memory; the supercell
+   SpMV against the BSR matvec (1e-5 relative), one apply's launches and
+   times beside its bound; 20 explicit field-major steps against 20 BSR
+   steps (1e-5); field-major GMRES + the grid V-cycle (right, rtol and atol
+   1e-5, cfl 1e3/3) for 2 steps: 40 to 42 iterations in the first (the TPU
+   took 41), converged, ‖(I + D)x − b‖/‖b‖ ≤ 1e-4 against the assembled
+   operator, the wall per step; the first step again, warm (the solve
+   bench_suite.py times), its wall and, over one more, its device time and
+   launches (torch.profiler); one V-cycle apply's launches, CUDA-event and
+   graph times. Then the drivers at 16³: wave_implicit --mesh-family kershawtet
+   --pc gridmg (the JAX driver's route: cell-major GMRES over the dense
+   M = 24 stencil, the cycle's cell-major apply) and wave_explicit
+   --mesh-family tetra, 2 steps each.
+Paths G to J launch none of K1, K2 and K3; their launch counts are printed
+(0 expected) and checked.
 
 Then one JSON line on the kernels (`ms`, `plain_ms` and `library_ms` are device
 time per call by CUDA-graph replay, `events_ms` the CUDA-event time of calls
@@ -133,6 +148,7 @@ N = 100  # the reference's largest registered grid ("gros calcul")
 TOL_KERNEL = 1e-5  # max|x_kernel − x_plain| / max|x_plain|
 TOL_RESIDUAL = 1e-4  # bench.py's residual gate
 NW = 64  # the Kershaw grid bench_suite.py measures the wave system at
+NJ = 50  # the Kershaw-tet rung of bench_suite.py: 6·50³ = 750,000 tets
 TOL_K2 = {torch.float32: 1e-5, torch.float64: 1e-12}  # max|y_K2 − y_plain| / max|y_plain|
 TOL_K3 = TOL_K2  # max|o_K3 − o_plain| / max|o_plain|
 PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
@@ -1176,6 +1192,197 @@ def slice6_phases(dev: torch.device, smi: str) -> None:
     check(not any(launched.values()), f"paths G to I launched a kernel: {launched}")
 
 
+def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
+    """Phase 18: main path J, the tet meshes and the supercell path. No TPU
+    kernel lies on it: it runs in plain PyTorch, and K1 to K3 must not
+    launch. Returns their launch counts on J (all 0)."""
+    import functools
+
+    from circulantpreconditioner_tpu_torch.drivers import wave_explicit, wave_implicit
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_tet_mesh
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+    from circulantpreconditioner_tpu_torch.models.transport import _identity_plus
+    from circulantpreconditioner_tpu_torch.ops.stencil import SupercellStencilOperator
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+    from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
+
+    f32 = dict(device=dev, dtype=torch.float32)
+    rng = np.random.default_rng(18)
+    t_phase = time.perf_counter()
+    reset_kernel_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+
+    # --- 18: main path J, route J-bench at Kershaw-tet NJ^3 ----------------
+    t0 = time.perf_counter()
+    mesh = kershaw_tet_mesh(((0.0, 1.0),) * 3, (NJ,) * 3)
+    t_mesh = time.perf_counter() - t0
+    we = WaveSystem(mesh, cfl=1.0 / 3, **f32)  # the explicit model
+    t0 = time.perf_counter()
+    D = we.divergence
+    torch.cuda.synchronize()
+    t_bsr = time.perf_counter() - t0
+    nnzb = int((D.blocks != 0).any(dim=(1, 2)).sum().item())
+    t0 = time.perf_counter()
+    S = we.supercell_operator
+    torch.cuda.synchronize()
+    t_sc = time.perf_counter() - t0
+    check(isinstance(S, SupercellStencilOperator), "no block-sparse supercell operator at NJ^3")
+    coef_bytes = sum(C.numel() * C.element_size() for C in S.coefs)
+    n_sites, n = NJ**3, D.shape[0]
+    print(f"[18 host build] Kershaw-tet {NJ}^3, eps 0.3: {mesh.n_cells} tets, {mesh.n_faces} "
+          f"faces, {n} unknowns, {nnzb} non-zero 4x4 blocks; mesh {t_mesh:.2f} s, assembly (BSR "
+          f"on the card) {t_bsr:.2f} s, supercell operator {t_sc:.2f} s "
+          f"({sum(map(len, S.pair_idx))} sub-block pairs over {len(S.offsets)} offsets, "
+          f"{coef_bytes / 1e6:.1f} MB of coefficients)", flush=True)
+
+    x = torch.as_tensor(rng.standard_normal(n), **f32)
+    y_bsr = D.matvec(x)
+    scale = y_bsr.abs().max().item()
+    rel_cm = (S.matvec(x) - y_bsr).abs().max().item() / scale
+    rel_fm = (we.unpack_fm(S.matvec_fm(we.pack_fm(x))) - y_bsr).abs().max().item() / scale
+    print(f"[18 supercell SpMV] against the assembled BSR matvec: max|dy|/max|y| {rel_cm:.3e} "
+          f"cell-major, {rel_fm:.3e} field-major (tol {TOL_KERNEL:g})", flush=True)
+    check(rel_cm <= TOL_KERNEL and rel_fm <= TOL_KERNEL,
+          f"the supercell SpMV is off the BSR matvec: {rel_cm:.3e}, {rel_fm:.3e}")
+    g = we.pack_fm(x)
+    prof = device_profile(lambda: S.matvec_fm(g), calls=5)
+    sc_ms = median_ms({"S": lambda: S.matvec_fm(g), "BSR": lambda: D.matvec(x)}, calls=10,
+                      repeats=5)
+    sc_graph = graph_ms(lambda: S.matvec_fm(g), calls=10, repeats=5)
+    sc_bound, sc_by = bound(2.0 * sum(len(p) for p in S.pair_idx) * 16 * n_sites,
+                            coef_bytes + 2 * 4 * n)
+    print(f"[18 supercell SpMV] one field-major apply: {sum(prof.counts.values()) / 5:.0f} kernel "
+          f"launches, {sc_ms['S']:.4f} ms by CUDA events, {sc_graph:.4f} ms by CUDA-graph replay, "
+          f"device {sum(prof.values()):.4f} ms (profiler); the BSR matvec {sc_ms['BSR']:.4f} ms "
+          f"by CUDA events; bound {sc_bound:.4f} ms ({sc_by}: {(coef_bytes + 8 * n) / 1e6:.1f} "
+          f"MB, coefficients, x and y once); {smi}", flush=True)
+
+    step_fm, step_bsr = we.explicit_stepper_fm(), we.explicit_stepper("matrix")
+    G, U = we.pack_fm(we.initial_state()), we.initial_state()
+    step_fm(G)  # warm-up (the allocator's first blocks); not part of the run
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    e0.record()
+    for _ in range(20):
+        G, _ = step_fm(G)
+    e1.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    for _ in range(20):
+        U, _ = step_bsr(U)
+    rel = (we.unpack_fm(G) - U).abs().max().item() / U.abs().max().item()
+    print(f"[18 main path J] explicit, 20 field-major steps at cfl 1/3: "
+          f"{e0.elapsed_time(e1) / 20:.4f} ms per step by CUDA events, wall of the 20 "
+          f"{wall:.1f} ms; against 20 BSR steps max|dU|/max|U| {rel:.3e} (tol {TOL_KERNEL:g}); "
+          f"{smi}", flush=True)
+    check(bool(torch.isfinite(G).all()) and rel <= TOL_KERNEL,
+          f"explicit supercell steps are off the BSR steps: {rel:.3e}")
+    del we, D, S, step_fm, step_bsr, G, U, g, x, y_bsr
+
+    t0 = time.perf_counter()
+    wi = WaveSystem(mesh, cfl=1e3 / 3, **f32)  # bench_suite.py's implicit model
+    A_fm = functools.partial(_identity_plus, wi.divergence_op_fm(flat=True))
+    torch.cuda.synchronize()
+    t_model = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pc = GridVCyclePC.from_grid_model(wi.divergence, mesh.topology_shape, cells_per_site=6,
+                                      A0_apply=A_fm, A0_apply_fm=A_fm, shift=1.0,
+                                      dtype=torch.float32)
+    torch.cuda.synchronize()
+    t_pc = time.perf_counter() - t0
+    sizes = [f"{pc.levels[0].n} tets -> {pc.levels[0].n_agg} sites"] + [
+        "x".join(map(str, L.shape_xyz)) for L in pc.levels[1:]]
+    print(f"[18 host build] implicit model (BSR, supercell operator) {t_model:.2f} s, grid "
+          f"V-cycle {t_pc:.2f} s: {pc.n_levels} levels ({' -> '.join(sizes)} -> bottom "
+          f"{pc.bot_inv.shape[0] // 4} sites); device memory "
+          f"{(torch.cuda.memory_allocated() - mem0) / 1e6:.1f} MB held, peak "
+          f"{(torch.cuda.max_memory_allocated() - mem0) / 1e6:.1f} MB since the phase began",
+          flush=True)
+
+    solver = make_gmres(A_fm, pc.apply_fm, rtol=1e-5, atol=1e-5, maxiter=1000, side="right")
+    Dmv = wi.divergence.matvec
+    G0 = G = wi.pack_fm(wi.initial_state()).reshape(-1)
+    its, conv, walls, true_res = [], [], [], []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = solver(G, G)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        x_cm, b_cm = wi.unpack_fm(res.x), wi.unpack_fm(G)
+        true_res.append((torch.linalg.norm(x_cm + Dmv(x_cm) - b_cm)
+                         / torch.linalg.norm(b_cm)).item())
+        its.append(res.iters)
+        conv.append(res.converged)
+        G = res.x
+    # the first step again, warm: bench_suite.py times this solve from U0 on the TPU
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warm = solver(G0, G0)
+    torch.cuda.synchronize()
+    warm_ms = (time.perf_counter() - t0) * 1e3
+    prof = device_profile(lambda: solver(G0, G0), calls=1)
+    print(f"[18 main path J] implicit, cfl 1e3/3, field-major GMRES + grid V-cycle (right, rtol "
+          f"atol 1e-5): iterations {its} (the JAX package's TPU record: 41, "
+          f"results/bench_suite_r05.json), converged {conv}, ||(I+D)x - b||/||b|| "
+          f"{[f'{r:.3e}' for r in true_res]} (tol {TOL_RESIDUAL:g}, assembled operator); wall "
+          f"per step {[round(w, 1) for w in walls]} ms; the first step again, warm: "
+          f"{warm.iters} iterations, wall {warm_ms:.1f} ms, device {sum(prof.values()):.1f} ms "
+          f"(profiler over one more, {sum(prof.counts.values())} launches); {smi}", flush=True)
+    check(all(conv) and max(true_res) <= TOL_RESIDUAL and 40 <= its[0] <= 42,
+          f"path J at {NJ}^3: iterations {its}, converged {conv}, residuals {true_res}")
+
+    r = G.clone()
+    prof = device_profile(lambda: pc.apply_fm(r), calls=3)
+    v_ms = median_ms({"V": lambda: pc.apply_fm(r)}, calls=5, repeats=5)["V"]
+    v_graph = graph_ms(lambda: pc.apply_fm(r), calls=5, repeats=5)
+    print(f"[18 times] one V-cycle apply (field-major): {sum(prof.counts.values()) / 3:.0f} kernel "
+          f"launches, {v_ms:.3f} ms by CUDA events, {v_graph:.3f} ms by CUDA-graph replay, device "
+          f"{sum(prof.values()):.3f} ms (profiler); largest: " + "; ".join(
+              f"{k[:40]} {v:.3f} ms x{prof.counts[k] // 3}" for k, v in
+              sorted(prof.items(), key=lambda kv: -kv[1])[:3]) + f"; {smi}", flush=True)
+    del wi, pc, solver, A_fm, Dmv, G, G0, r, res, warm, x_cm, b_cm
+
+    # --- 18: the drivers at 16^3: route J-drv (cell-major GMRES over the dense
+    # M = 24 stencil, the V-cycle's cell-major apply) and the explicit loop
+    nd = 16
+    for label, module, argv in (
+            ("wave_implicit --pc gridmg kershawtet", wave_implicit,
+             ["--mesh-family", "kershawtet", "--pc", "gridmg"]),
+            ("wave_explicit tetra", wave_explicit, ["--mesh-family", "tetra"])):
+        with tempfile.TemporaryDirectory() as out_dir:
+            t0 = time.perf_counter()
+            res = module.main(argv + [str(nd)] * 3 + ["--ntmax", "2", "--tmax", "1e9",
+                                                      "--device", "cuda", "--result-dir", out_dir])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        its = [d["extras"][0] for d in res.diagnostics if d["extras"]]
+        conv = [d["extras"][2] for d in res.diagnostics if d["extras"]]
+        print(f"[18 driver] {label} {nd}^3: {res.iterations} steps, iterations {its}, converged "
+              f"{conv}, ms/step {[round(t * 1e3, 1) for t in res.step_seconds]}, driver wall "
+              f"{wall:.2f} s; {smi}", flush=True)
+        check(res.iterations == 2 and all(conv) and bool(torch.isfinite(res.state).all()),
+              f"{label}: {res.iterations} steps, iterations {its}, converged {conv}")
+
+    wd = WaveSystem(kershaw_tet_mesh(((0.0, 1.0),) * 3, (nd,) * 3), cfl=1e3 / 3, **f32)
+    x = torch.randn(wd.divergence.shape[0], **f32)
+    forms = {"dense M = 24, cell-major (the implicit driver's)": wd.divergence_op(),
+             "block-sparse, field-major (the explicit driver's)": wd.divergence_op_fm(flat=True)}
+    ms = median_ms({k: functools.partial(f, x) for k, f in forms.items()}, calls=10, repeats=5)
+    print(f"[18 times] one D apply at Kershaw-tet {nd}^3: " + "; ".join(
+        f"{k} {ms[k]:.4f} ms by CUDA events, {graph_ms(functools.partial(f, x), 10, 5):.4f} by "
+        f"graph replay" for k, f in forms.items()) + f"; {smi}", flush=True)
+
+    launched = kernel_launches()
+    print(f"[18] K1, K2, K3 launches on path J: {launched} (0 expected: no TPU kernel lies on "
+          f"it); phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(not any(launched.values()), f"path J launched a kernel: {launched}")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -1411,6 +1618,8 @@ def main() -> int:
     k3 = fft_pc_phases(dev, smi, mesh64, mi)
     k2["launches_by_path"].update(k3.pop("k2_launches_by_path"))
     slice6_phases(dev, smi)
+    j_launches = path_j_phases(dev, smi)
+    j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
 
     print(json.dumps({"kernels": [{
         "name": "fused_circulant_solve (K1)",
@@ -1418,7 +1627,8 @@ def main() -> int:
         "source": "circulantpreconditioner_tpu_torch/csrc/fused_circulant.cu",
         "replaces": "circulantpreconditioner_tpu/ops/fused_circulant.py:117",
         "launches": launches,
-        "launches_by_path": {"B GMRES + K1 preconditioner 100^3, 3 steps": launches},
+        "launches_by_path": {"B GMRES + K1 preconditioner 100^3, 3 steps": launches,
+                             j_path: j_launches["K1"]},
         "max_abs_err": max_abs_err,
         "ms": k1_graph["K1 (fused CUDA)"],
         "plain_ms": k1_graph["K1 plain (torch.matmul)"],
@@ -1433,13 +1643,13 @@ def main() -> int:
         "route": "cuda",
         "source": "circulantpreconditioner_tpu_torch/csrc/plane_stencil.cu",
         "replaces": "circulantpreconditioner_tpu/ops/pallas_stencil.py:69",
-        **k2,
+        **k2, "launches_by_path": {**k2["launches_by_path"], j_path: j_launches["K2"]},
     }, {
         "name": "complex_matmul (K3)",
         "route": "cuda",
         "source": "circulantpreconditioner_tpu_torch/csrc/complex_matmul.cu",
         "replaces": "circulantpreconditioner_tpu/ops/pallas_kernels.py:33",
-        **k3,
+        **k3, "launches_by_path": {**k3["launches_by_path"], j_path: j_launches["K3"]},
     }]}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(f"card: {smi}")

@@ -2,11 +2,12 @@
 circulantpreconditioner_tpu/drivers/common.py).
 
 Positional nx [ny [nz]] on the domain [-0.5, 0.5]^d, as the reference
-drivers, with `--mesh-family cartesian|hexa|kershaw` (hexa and kershaw are
-3D: missing extents repeat the last one). `--device` picks the torch device
-(default "cuda", which raises when no GPU is present). The tetrahedral
-families, mesh files and the VTK/MED writers raise NotImplementedError
-naming their ROADMAP.md item; checkpoints are written.
+drivers, with `--mesh-family cartesian|hexa|tetra|kershaw|kershawtet` (all
+but cartesian are 3D: missing extents repeat the last one; tetra and
+kershawtet split each hex into 6 tets). `--device` picks the torch device
+(default "cuda", which raises when no GPU is present). Mesh files and the
+VTK/MED writers raise NotImplementedError naming their ROADMAP.md item;
+checkpoints are written.
 """
 
 from __future__ import annotations
@@ -18,7 +19,12 @@ import torch
 
 from circulantpreconditioner_tpu_torch.io import save_checkpoint
 from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh
-from circulantpreconditioner_tpu_torch.mesh.unstructured import hex_mesh, kershaw_mesh
+from circulantpreconditioner_tpu_torch.mesh.unstructured import (
+    hex_mesh,
+    kershaw_mesh,
+    kershaw_tet_mesh,
+    tet_mesh,
+)
 from circulantpreconditioner_tpu_torch.utils.device import resolve_device
 
 
@@ -57,17 +63,19 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
 def build_mesh(args):
     if args.msh or (args.n and not str(args.n[0]).lstrip("-").isdigit()):
         raise NotImplementedError("mesh files (.msh/.med) are not ported yet: "
-                                  "see ROADMAP.md, slice 2, item 12a")
+                                  "see ROADMAP.md, queue 1, item 12a (mesh readers)")
     n = [int(v) for v in args.n] or [50, 50]  # reference default 50x50 square
     if args.mesh_family == "cartesian":
         return cartesian_mesh(((-0.5, 0.5),) * len(n), n, periodic=args.periodic)
-    if args.mesh_family in ("tetra", "kershawtet"):
-        raise NotImplementedError(f"--mesh-family {args.mesh_family} is not ported yet: "
-                                  "see ROADMAP.md, slice 2, item 12a")
     bounds = ((-0.5, 0.5),) * 3
     n3 = (n + [n[-1]] * 3)[:3]
     if args.mesh_family == "hexa":
         return hex_mesh(bounds, n3)
+    if args.mesh_family == "tetra":
+        return tet_mesh(bounds, n3)
+    if args.mesh_family == "kershawtet":
+        # generated 3DKershawTetra analog (the reference ladder's top family)
+        return kershaw_tet_mesh(bounds, n3, eps=args.kershaw_eps)
     return kershaw_mesh(bounds, n3, eps=args.kershaw_eps)
 
 

@@ -2,11 +2,13 @@
 
 Explicit upwind stepping Uⁿ⁺¹ = Uⁿ − D Uⁿ on the 50×50 square or any ported
 mesh, cfl = 1/dim, stationarity ‖dUⁿ‖₂ < 1e-5. On meshes with a gather-free
-stencil form the loop runs field-major (state (dim+1, nC)); on the GPU its D
-is kernel K2. `--shard` (the expl_mpi workload) is not ported.
+stencil form the loop runs field-major (state (fm_block, nSites)); on the GPU
+its D is kernel K2 on the Kershaw hexahedra and the block-sparse supercell
+stencil on the tet meshes. `--shard` (the expl_mpi workload) is not ported.
 
     python -m circulantpreconditioner_tpu_torch.drivers.wave_explicit 50 50
     python -m circulantpreconditioner_tpu_torch.drivers.wave_explicit --mesh-family kershaw 64 64 64
+    python -m circulantpreconditioner_tpu_torch.drivers.wave_explicit --mesh-family tetra 16 16 16
 """
 
 from __future__ import annotations

@@ -7,7 +7,8 @@ Preconditioners:
   bjacobi (the reference's MPI solver): ILU(0) of --n-blocks contiguous
   diagonal blocks;
 - none, pbjacobi;
-- gridmg: the geometric-Galerkin grid V-cycle (meshes whose topology is a grid);
+- gridmg: the geometric-Galerkin grid V-cycle (meshes whose topology is a
+  grid; on the tet meshes its first level aggregates each hex's 6 tets);
 - aggvcycle: the algebraic aggregation V-cycle (any mesh);
 - circulant2l, dct2l: the additive two-level projection PCs, the periodic
   block-circulant or the wall DCT/DST cartesian solve plus point-block
@@ -20,10 +21,14 @@ the left. For none, pbjacobi, gridmg and the projection PCs, where the mesh
 has a gather-free stencil form, the loop runs field-major, and on the GPU its
 matvec (and the grid V-cycle's fine level, and dct2lm's second operator
 apply) is kernel K2. ilu0, bjacobi and aggvcycle run the cell-major loop, as
-in the JAX driver: they have no field-major form.
+in the JAX driver: they have no field-major form. So does every PC on the tet
+meshes (--mesh-family tetra|kershawtet), whose field view groups the 6 cells
+of a site: there GMRES's matvec is the dense supercell stencil (M = 24) and
+gridmg's V-cycle runs cell-major, the JAX driver's route.
 
     python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit 32 32 32
     python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit --mesh-family kershaw 64 64 64 --pc dct2lm
+    python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit --mesh-family kershawtet 16 16 16 --pc gridmg
 """
 
 from __future__ import annotations
@@ -145,9 +150,13 @@ def _preconditioners(args, mesh, model, device, dtype):
             raise ValueError("--pc gridmg needs a mesh whose topology is a grid")
         from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
 
+        # on a supercell mesh implicit_matvec_fm() is None, so the V-cycle
+        # builds its own dense fine operator for apply_fm, as in the JAX
+        # driver; only its cell-major apply runs there
         pc_obj = GridVCyclePC.from_grid_model(
-            model.divergence, mesh.topology_shape, A0_apply=model.implicit_matvec(),
-            A0_apply_fm=model.implicit_matvec_fm(), shift=1.0, dtype=dtype)
+            model.divergence, mesh.topology_shape, cells_per_site=model.cells_per_site,
+            A0_apply=model.implicit_matvec(), A0_apply_fm=model.implicit_matvec_fm(),
+            shift=1.0, dtype=dtype)
         return None, pc_obj.apply_fm, lambda: pc_obj.apply
     pj_fm = pcs.pbjacobi_fm(model.divergence, shift=1.0)
     make_pj = lambda: pcs.pbjacobi(model.divergence, shift=1.0)  # noqa: E731

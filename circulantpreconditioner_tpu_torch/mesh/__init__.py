@@ -7,4 +7,6 @@ from circulantpreconditioner_tpu_torch.mesh.unstructured import (  # noqa: F401
     build_mesh_from_cells,
     hex_mesh,
     kershaw_mesh,
+    kershaw_tet_mesh,
+    tet_mesh,
 )

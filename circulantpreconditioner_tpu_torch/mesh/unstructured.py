@@ -1,15 +1,20 @@
-"""Unstructured hexahedral meshes: cell-vertex → face-major conversion and the
-hexa / Kershaw generators.
+"""Unstructured meshes: cell-vertex → face-major conversion and the hexa,
+Kershaw, tetra and Kershaw-tetra generators.
 
-NumPy copy of the hexahedral part of circulantpreconditioner_tpu/mesh/
-unstructured.py. Faces are extracted by the sorted-vertex-key lexsort only:
-the JAX package's optional g++ helper (native/fvcore.cpp) is a host
-accelerator and is not copied. Face order may therefore differ from the JAX
-package's when that helper is built; every face-derived quantity (areas,
-normals, volumes, the assembled operators) is the same up to that order.
+NumPy copy of circulantpreconditioner_tpu/mesh/unstructured.py. Homogeneous
+hexahedral or tetrahedral meshes take a vectorised path whose faces are
+numbered in the order they are first met, as the JAX package's native face
+extraction (native/fvcore.cpp) numbers them, so every face array, the cell
+volumes and the assembled operators are equal to the JAX package's bit for
+bit. Polyhedral and mixed meshes (`cell_faces` given) take the generic
+per-face path, the JAX package's own loop.
 
-The tetrahedral families, the Gmsh/MED readers and the 2D polygon meshes
-wait for ROADMAP.md, slice 2, item 12a.
+The tetra families number their cells hex-major, 6 tetrahedra per hexahedron,
+so that `topology_shape` and `cells_per_site = 6` describe them as a grid of
+supercells (ops/stencil.py).
+
+The Gmsh/MED readers, `weld_points` and the 2D polygon meshes wait for
+ROADMAP.md, queue 1 (mesh readers and writers).
 """
 
 from __future__ import annotations
@@ -28,6 +33,19 @@ _HEX_FACES = [
     (3, 7, 6, 2),  # y+
     (0, 4, 7, 3),  # x-
     (1, 2, 6, 5),  # x+
+]
+
+# 4 triangle faces of a tetrahedron (outward for positively oriented tets)
+_TET_FACES = [(1, 2, 3), (0, 3, 2), (0, 1, 3), (0, 2, 1)]
+
+# splitting of a hex into 6 tets (all positively oriented, shared diagonal 0-6)
+_HEX_TO_TETS = [
+    (0, 1, 2, 6),
+    (0, 2, 3, 6),
+    (0, 3, 7, 6),
+    (0, 7, 4, 6),
+    (0, 4, 5, 6),
+    (0, 5, 1, 6),
 ]
 
 
@@ -52,17 +70,22 @@ def _polygon_area_normal_center(pts: np.ndarray):
 
 
 def _extract_faces(cells_arr: np.ndarray):
-    """Shared faces of a homogeneous hex mesh: (face_vertices (nF, 4),
-    face_cells (nF, 2) with -1 on the boundary). Faces are numbered in the
-    order they are first met, cell by cell and face by face within a cell,
-    and keep the vertex order of that first meeting: the numbering of the
-    JAX package's native face extraction (native/fvcore.cpp), so that every
-    sum over faces runs in the same order and the assembled operators are
-    equal bit for bit. Found by sorted-vertex-key lexsort (stable: the first
+    """Shared faces of a homogeneous hex (8 vertices) or tet (4 vertices)
+    mesh: (face_vertices (nF, 4), a tet's triangles padded with -1 in the
+    fourth column; face_cells (nF, 2) with -1 on the boundary). Faces are
+    numbered in the order they are first met, cell by cell and face by face
+    within a cell, and keep the vertex order of that first meeting: the
+    numbering of the JAX package's native face extraction (native/fvcore.cpp),
+    so that every sum over faces runs in the same order and the assembled
+    operators are equal bit for bit. Found by a lexsort of the sorted vertex
+    keys, the pad included as the native key includes it (stable: the first
     of equal keys is the first met)."""
-    n_cells = len(cells_arr)
-    nf = len(_HEX_FACES)
-    faces = cells_arr[:, np.asarray(_HEX_FACES).reshape(-1)].reshape(n_cells * nf, 4)
+    n_cells, nv = cells_arr.shape
+    table = np.asarray(_HEX_FACES if nv == 8 else _TET_FACES)
+    nf, k = table.shape
+    faces = cells_arr[:, table.reshape(-1)].reshape(n_cells * nf, k)
+    if k == 3:
+        faces = np.concatenate([faces, np.full((len(faces), 1), -1, np.int64)], axis=1)
     owner = np.repeat(np.arange(n_cells, dtype=np.int64), nf)
     key = np.sort(faces, axis=1)
     order = np.lexsort(key.T[::-1])
@@ -86,14 +109,18 @@ def _extract_faces(cells_arr: np.ndarray):
 
 
 def _fast_build_homogeneous(points, cells_arr, default_group, name):
-    """Vectorized build of a homogeneous hex mesh. The fan-triangulation
-    area vector Σ ½(aᵢ−c)×(aᵢ₊₁−c) does not depend on the fan point c.
-    Geometry runs on per-component contiguous (nF, 4) arrays: stride-3
-    access over large buffers is far slower on the host."""
+    """Vectorized build of a homogeneous hex or tet mesh. The
+    fan-triangulation area vector Σ ½(aᵢ−c)×(aᵢ₊₁−c) does not depend on the
+    fan point c, so a triangle padded with its first vertex repeated is
+    exact. Geometry runs on per-component contiguous (nF, 4) arrays:
+    stride-3 access over large buffers is far slower on the host."""
     n_cells = cells_arr.shape[0]
     fv, fc = _extract_faces(cells_arr)
+    fvp = fv.copy()
+    pad = fvp[:, 3] < 0
+    fvp[pad, 3] = fvp[pad, 0]
     comp = [np.ascontiguousarray(points[:, d]) for d in range(3)]
-    Pc = [cd[fv] for cd in comp]  # 3 × (nF, 4)
+    Pc = [cd[fvp] for cd in comp]  # 3 × (nF, 4)
     cc = [p.mean(axis=1) for p in Pc]  # fan point
     bc = [p[:, [1, 2, 3, 0]] for p in Pc]
     d1 = [p - m[:, None] for p, m in zip(Pc, cc)]
@@ -145,25 +172,103 @@ def _fast_build_homogeneous(points, cells_arr, default_group, name):
         name=name,
     )
     mesh.points = points  # type: ignore[attr-defined]
-    mesh.cell_vertices = cells_arr  # type: ignore[attr-defined]  # (nC, 8) int64
-    mesh.face_vertices = fv  # type: ignore[attr-defined]  # (nF, 4) int64
+    mesh.cell_vertices = cells_arr  # type: ignore[attr-defined]  # (nC, 8 or 4) int64
+    mesh.face_vertices = fv  # type: ignore[attr-defined]  # (nF, 4) int64, -1 pad
     return mesh
 
 
-def build_mesh_from_cells(points: np.ndarray, cells, default_group: str = "Wall",
-                          name: str = "unstructured") -> Mesh:
-    """Face-major mesh from hexahedral cells (8 vertex ids each, in the
-    _HEX_FACES numbering). Face areas and normals by fan triangulation,
-    normals outward of the first incident cell, volumes by the divergence
-    theorem — valid for the warped, non-planar Kershaw cells."""
+def build_mesh_from_cells(points: np.ndarray, cells, cell_faces=None,
+                          default_group: str = "Wall", name: str = "unstructured") -> Mesh:
+    """Face-major mesh from cells given by their vertex ids. With `cell_faces`
+    None, cells are hexahedra (8 vertices, the _HEX_FACES numbering) or
+    tetrahedra (4 vertices, _TET_FACES); homogeneous meshes of either take
+    the vectorised path. Otherwise `cell_faces[c]` lists cell c's faces as
+    tuples of its local vertex numbers (polyhedra, mixed meshes). Face areas
+    and normals by fan triangulation, normals outward of the first incident
+    cell, volumes by the divergence theorem: valid for the warped,
+    non-planar Kershaw cells."""
     points = np.asarray(points, dtype=np.float64)
     if points.shape[1] == 2:
         points = np.concatenate([points, np.zeros((len(points), 1))], axis=1)
-    cells_arr = np.asarray(cells, dtype=np.int64)
-    if cells_arr.ndim != 2 or cells_arr.shape[1] != 8 or not len(cells_arr):
-        raise NotImplementedError("only hexahedral cells are ported; tetrahedra and "
-                                  "polyhedra: see ROADMAP.md, slice 2, item 12a")
-    return _fast_build_homogeneous(points, cells_arr, default_group, name)
+    if cell_faces is None and len(cells):
+        if {len(c) for c in cells} in ({4}, {8}):
+            return _fast_build_homogeneous(points, np.asarray(cells, dtype=np.int64),
+                                           default_group, name)
+    return _build_generic(points, cells, cell_faces, default_group, name)
+
+
+def _build_generic(points, cells, cell_faces, default_group, name) -> Mesh:
+    """The JAX package's per-face loop: faces in first-met order, each one's
+    geometry by _polygon_area_normal_center, cell centres as vertex means."""
+    face_map: dict[tuple[int, ...], int] = {}
+    f_vertices: list[tuple[int, ...]] = []
+    f_cells: list[list[int]] = []
+    for ci, cv in enumerate(cells):
+        if cell_faces is not None:
+            local = cell_faces[ci]
+        elif len(cv) == 8:
+            local = _HEX_FACES
+        elif len(cv) == 4:
+            local = _TET_FACES
+        else:
+            raise ValueError(f"cell {ci}: unsupported vertex count {len(cv)}")
+        for lf in local:
+            gv = tuple(int(cv[i]) for i in lf)
+            key = tuple(sorted(gv))
+            j = face_map.get(key)
+            if j is None:
+                face_map[key] = len(f_vertices)
+                f_vertices.append(gv)
+                f_cells.append([ci])
+            else:
+                f_cells[j].append(ci)
+
+    n_cells, nF = len(cells), len(f_vertices)
+    face_cells = np.full((nF, 2), -1, dtype=np.int64)
+    face_normal = np.zeros((nF, 3))
+    face_area = np.zeros(nF)
+    face_center = np.zeros((nF, 3))
+    cell_centroid = np.array([points[list(cv)].mean(axis=0) for cv in cells])
+    for f, (gv, cl) in enumerate(zip(f_vertices, f_cells)):
+        if len(cl) > 2:
+            raise ValueError(f"face {f} shared by {len(cl)} cells — broken mesh")
+        area, nrm, ctr = _polygon_area_normal_center(points[list(gv)])
+        if np.dot(nrm, ctr - cell_centroid[cl[0]]) < 0:
+            nrm = -nrm
+        face_cells[f, 0] = cl[0]
+        if len(cl) == 2:
+            face_cells[f, 1] = cl[1]
+        face_normal[f] = nrm
+        face_area[f] = area
+        face_center[f] = ctr
+
+    # V = (1/3) Σ_f (c_f · n_f) A_f, face by face as the JAX package sums it
+    cell_volume = np.zeros(n_cells)
+    for f in range(nF):
+        contrib = face_area[f] * np.dot(face_center[f], face_normal[f]) / 3.0
+        cell_volume[face_cells[f, 0]] += contrib
+        if face_cells[f, 1] >= 0:
+            cell_volume[face_cells[f, 1]] -= contrib
+
+    mesh = Mesh(
+        dim=3,
+        cell_center=cell_centroid,
+        cell_volume=cell_volume,
+        face_cells=face_cells,
+        face_normal=face_normal,
+        face_area=face_area,
+        face_center=face_center,
+        face_group=np.where(face_cells[:, 1] < 0, 1, INTERIOR).astype(np.int32),
+        groups={default_group: 1},
+        periodic_twin=None,
+        structured_shape=None,
+        bounds=None,
+        name=name,
+    )
+    mesh.points = points  # type: ignore[attr-defined]
+    mesh.cell_vertices = cells  # type: ignore[attr-defined]
+    mesh.face_vertices = f_vertices  # type: ignore[attr-defined]  # list of tuples
+    return mesh
 
 
 def _hex_grid_points_cells(bounds, n, warp=None):
@@ -197,6 +302,28 @@ def hex_mesh(bounds, n, name=None) -> Mesh:
     return m
 
 
+def _tets_of_hexes(hexes: np.ndarray) -> np.ndarray:
+    """(6·nH, 4) vertex ids: each hex split into the 6 tets of _HEX_TO_TETS,
+    hex-major (the 6 tets of hex h are cells 6h … 6h+5)."""
+    return hexes[:, np.asarray(_HEX_TO_TETS)].reshape(-1, 4)
+
+
+def _supercell_grid(m: Mesh, n) -> Mesh:
+    """Record the hex-major numbering: 6 tets per site of the (nx, ny, nz)
+    grid, which the gather-free supercell stencils use."""
+    m.topology_shape = tuple(int(v) for v in n)  # type: ignore[attr-defined]
+    m.cells_per_site = 6  # type: ignore[attr-defined]
+    return m
+
+
+def tet_mesh(bounds, n, name=None) -> Mesh:
+    """Each hex of the (nx, ny, nz) grid split into 6 tetrahedra (FVCA6
+    'gentle tetrahedra' analog)."""
+    pts, hexes = _hex_grid_points_cells(bounds, n)
+    return _supercell_grid(build_mesh_from_cells(
+        pts, _tets_of_hexes(hexes), name=name or f"tetra_{'x'.join(map(str, n))}"), n)
+
+
 def _kershaw_warp(bounds, eps: float):
     bounds = np.asarray(bounds, dtype=np.float64).reshape(3, 2)
     lo, hi = bounds[:, 0], bounds[:, 1]
@@ -228,3 +355,13 @@ def kershaw_mesh(bounds, n, eps: float = 0.3, name=None) -> Mesh:
     m = build_mesh_from_cells(pts, cells, name=name or f"kershaw_{'x'.join(map(str, n))}")
     m.topology_shape = tuple(int(v) for v in n)  # type: ignore[attr-defined]
     return m
+
+
+def kershaw_tet_mesh(bounds, n, eps: float = 0.3, name=None) -> Mesh:
+    """Kershaw-warped hexahedra split into 6 tets each: the generated analog
+    of the reference's 3DKershawTetra family, whose top rung (KershawTetra3,
+    766,976 tets) is absent from the reference snapshot; 6·50³ = 750,000 tets
+    is close to it."""
+    pts, hexes = _hex_grid_points_cells(bounds, n, warp=_kershaw_warp(bounds, eps))
+    return _supercell_grid(build_mesh_from_cells(
+        pts, _tets_of_hexes(hexes), name=name or f"kershawtet_{'x'.join(map(str, n))}"), n)

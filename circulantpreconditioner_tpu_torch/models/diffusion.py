@@ -69,7 +69,7 @@ class DiffusionEquation:
 
     def divergence_op(self, operator: str = "auto"):
         """D as a callable: 'varying' (gather-free stencil, meshes whose
-        topology is a grid), 'matrix' (the CSR matvec), or 'auto'."""
+        topology is a grid, the tet meshes' supercells too), 'matrix' (the CSR matvec), or 'auto'."""
         if operator == "auto":
             operator = ("varying" if getattr(self.mesh, "topology_shape", None) is not None
                         else "matrix")
@@ -77,7 +77,8 @@ class DiffusionEquation:
             from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
 
             return VaryingStencilOperator.from_csr(
-                self.divergence, self.mesh.topology_shape).matvec  # type: ignore[attr-defined]
+                self.divergence, self.mesh.topology_shape,  # type: ignore[attr-defined]
+                cells_per_site=getattr(self.mesh, "cells_per_site", 1)).matvec
         if operator == "matrix":
             return self.divergence.matvec
         raise ValueError(f"unknown operator {operator!r}")

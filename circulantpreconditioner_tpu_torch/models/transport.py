@@ -114,7 +114,7 @@ class TransportEquation:
     def divergence_op(self, operator: str = "auto"):
         """D as a callable: 'stencil' (structured fast path), 'varying'
         (gather-free stencil on topologically structured meshes such as
-        Kershaw), 'window' (clustered dense windows), 'matrix' (assembled
+        Kershaw; on the tet meshes the dense supercell form), 'window' (clustered dense windows), 'matrix' (assembled
         CSR), or 'auto' (same choice as the JAX model)."""
         if operator == "auto":
             if self._stencil_bc():
@@ -129,7 +129,8 @@ class TransportEquation:
             from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
 
             return VaryingStencilOperator.from_csr(
-                self.divergence, self.mesh.topology_shape).matvec  # type: ignore[attr-defined]
+                self.divergence, self.mesh.topology_shape,  # type: ignore[attr-defined]
+                cells_per_site=getattr(self.mesh, "cells_per_site", 1)).matvec
         if operator == "window":
             from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
 

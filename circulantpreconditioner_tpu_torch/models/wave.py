@@ -6,13 +6,17 @@
   domain centre, else 70e5, velocity 0 (WaveSystem.cxx:25-76);
 - dt = cfl · minRatioVolSurf / c0;
 - the block upwind divergence D (ops/assembly.py) with Wall, Periodic and
-  Neumann boundaries, in four forms: the assembled BSR, the cartesian
-  stencil, the varying stencil and its wave normal form;
+  Neumann boundaries, in five forms: the assembled BSR, the cartesian
+  stencil, the varying stencil, its wave normal form (one cell per grid
+  site) and, on the tet meshes (6 cells per site), the block-sparse
+  supercell stencil;
 - explicit stepping Uⁿ⁺¹ = Uⁿ − D Uⁿ and implicit GMRES on (I + D), cell-major
-  or field-major. Field-major keeps the state as (dim+1, N) (flattened for
-  GMRES) so no matvec pays an (N, m) ↔ (m, N) relayout; on a CUDA device the
-  field-major D is kernel K2 (ops/plane_stencil.py) whenever the operator
-  fits its contract;
+  or field-major. Field-major keeps the state as (fm_block, nSites)
+  (flattened for GMRES) so no matvec pays an (N, m) ↔ (m, N) relayout; on a
+  CUDA device the field-major D is kernel K2 (ops/plane_stencil.py) whenever
+  the operator fits its contract. On the tet meshes the cell-major D is the
+  dense supercell stencil (M = 24) and the field-major D the block-sparse
+  one; GMRES there runs cell-major, as in the JAX package;
 - direct steppers on cartesian grids: the block-circulant solve on periodic
   grids (`block_fft_stepper`) and the DCT/DST solve on wall grids
   (`dct_fft_stepper`, `dct_fft_stepper_fm`).
@@ -110,23 +114,45 @@ class WaveSystem:
                              "homogeneous Wall or Periodic boundaries")
         return WaveStencilOperator.from_model(self, bc=bc)
 
-    @cached_property
-    def varying_operator(self):
-        """D as a VaryingStencilOperator on the mesh's topology grid. Built
-        once: at 64³ the host build takes seconds, and the cell-major,
-        field-major and preconditioner paths all share it."""
+    @property
+    def cells_per_site(self) -> int:
+        return int(getattr(self.mesh, "cells_per_site", 1))
+
+    def _varying(self):
         from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
 
         return VaryingStencilOperator.from_bsr(
-            self.divergence, self.mesh.topology_shape)  # type: ignore[attr-defined]
+            self.divergence, self.mesh.topology_shape,  # type: ignore[attr-defined]
+            cells_per_site=self.cells_per_site)
+
+    @cached_property
+    def varying_operator(self):
+        """D as a VaryingStencilOperator on the mesh's topology grid (of
+        sites: M = (dim+1)·cells_per_site). Built once: at 64³ the host build
+        takes seconds, and the cell-major, field-major and preconditioner
+        paths all share it."""
+        return self._varying()
 
     @cached_property
     def normal_operator(self):
         """The wave normal form of `varying_operator`, or None where the
-        decomposition fails."""
+        decomposition fails or a site holds several cells."""
         from circulantpreconditioner_tpu_torch.ops.stencil import WaveNormalStencilOperator
 
+        if self.cells_per_site != 1:
+            return None
         return WaveNormalStencilOperator.from_varying(self.varying_operator, self.c0)
+
+    @cached_property
+    def supercell_operator(self):
+        """The block-sparse SupercellStencilOperator of D on a supercell mesh,
+        or None where the varying stencil is not flat. Decomposed from a
+        VaryingStencilOperator that is not kept: its dense form holds 2.0 GB
+        in float32 at Kershaw-tet 50³, this one about an eighth of it."""
+        from circulantpreconditioner_tpu_torch.ops.stencil import SupercellStencilOperator
+
+        return SupercellStencilOperator.from_varying(self._varying(), self.nb,
+                                                     self.cells_per_site)
 
     def divergence_op(self, operator: str = "auto"):
         """D as a callable on flat cell-major vectors: 'stencil' (cartesian),
@@ -160,17 +186,28 @@ class WaveSystem:
         raise ValueError(f"unknown operator {operator!r}")
 
     def divergence_op_fm(self, operator: str = "auto", flat: bool = False):
-        """Field-major D: input and output (dim+1, nC), or flat (dim+1)·nC
-        vectors with flat=True (for Krylov solvers). None when the mesh has
-        no gather-free stencil form. On a CUDA device the normal form runs
-        in kernel K2 when the operator fits its contract (the JAX package
-        takes its Pallas kernel on the TPU at the same point); K2's matvec
-        takes either shape."""
+        """Field-major D: input and output (fm_block, nSites), or flat vectors
+        with flat=True (for Krylov solvers). None when the mesh has no
+        gather-free stencil form. On a CUDA device the normal form runs in
+        kernel K2 when the operator fits its contract (the JAX package takes
+        its Pallas kernel on the TPU at the same point); K2's matvec takes
+        either shape. On a supercell mesh D is the block-sparse
+        SupercellStencilOperator where the stencil is flat, else the dense
+        varying one."""
         if operator == "auto":
             operator = ("varying" if getattr(self.mesh, "topology_shape", None) is not None
                         else "matrix")
         if operator not in ("varying", "normal"):
             return None
+        if self.cells_per_site != 1:
+            if operator == "normal":
+                raise ValueError("wave normal-form decomposition failed for this mesh")
+            try:
+                S = self.supercell_operator
+            except ValueError:  # not a 7-point stencil of sites
+                return None
+            op = S if S is not None else self.varying_operator
+            return op.matvec_fm_flat if flat else op.matvec_fm
         try:
             V = self.varying_operator
         except ValueError:
@@ -197,10 +234,10 @@ class WaveSystem:
 
     @property
     def fm_block(self) -> int:
-        """Field-major granularity: dim+1 components per cell (the
-        supercell meshes, with several cells per site, wait for ROADMAP.md,
-        slice 2, item 13)."""
-        return self.nb
+        """Field-major granularity: dim+1 components per cell, times the
+        cells of a site on supercell meshes (tet meshes: 6 cells per site,
+        a 24-row field view)."""
+        return self.nb * self.cells_per_site
 
     def pack_fm(self, U) -> torch.Tensor:
         """Flat cell-major state → field-major (fm_block, nSites), on the
@@ -300,7 +337,12 @@ class WaveSystem:
 
     def implicit_matvec_fm(self, operator: str = "auto"):
         """I + D on field-major flat vectors, or None when the mesh has no
-        gather-free stencil form."""
+        gather-free stencil form. None on supercell meshes too: their field
+        view groups fm_block = cells_per_site·(dim+1) rows, which the
+        per-cell preconditioners (pbjacobi_fm, cell_major_adapter) would
+        mis-index, so GMRES runs cell-major there, as in the JAX package."""
+        if self.cells_per_site != 1:
+            return None
         D = self.divergence_op_fm(operator, flat=True)
         if D is None:
             return None

@@ -5,14 +5,15 @@ of circulantpreconditioner_tpu/ops/stencil.py).
 - `WaveStencilOperator`: the wave system on uniform cartesian grids with
   homogeneous Wall or Periodic boundaries.
 - `VaryingStencilOperator`: any 7-point (block) stencil on a topologically
-  structured mesh (the warped Kershaw hexahedra), as per-offset coefficient
-  fields applied with `torch.roll`.
+  structured mesh (the warped Kershaw hexahedra; with `cells_per_site` > 1,
+  the tet meshes' supercells of 6 cells), as per-offset coefficient fields
+  applied with `torch.roll`.
+- `SupercellStencilOperator`: the block-sparse form of a supercell varying
+  stencil, only the non-zero (m×m) sub-blocks of each offset.
 - `WaveNormalStencilOperator`: the wave system's normal form of the varying
   stencil, with (s, n̂) per neighbour instead of a dense block. Its flat
   field-major apply is the plain version of kernel K2
   (ops/plane_stencil.py, csrc/plane_stencil.cu).
-
-The supercell (tetrahedral) form waits for ROADMAP.md, slice 2, item 13.
 """
 
 from __future__ import annotations
@@ -23,7 +24,6 @@ import numpy as np
 import torch
 
 from circulantpreconditioner_tpu_torch.ops.assembly import wave_jacobian_blocks
-from circulantpreconditioner_tpu_torch.ops.csr import _sum_blocks
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
 
 
@@ -187,8 +187,8 @@ class TransportStencilOperator:
 
 class _GridStencil:
     """The applies shared by the grid stencils: `_apply_gt` (on the
-    field-major (m, N) or (m, nz, ny, nx) view, returning the m output
-    components) is the subclass's; shape_zyx, m and layout are its fields."""
+    field-major (m, N) or (m, nz, ny, nx) view, returning the output in the
+    same shape) is the subclass's; shape_zyx, m and layout are its fields."""
 
     def _fm_shape(self) -> tuple[int, ...]:
         return (self.m, -1) if self.layout == "flat" else (self.m,) + self.shape_zyx
@@ -196,7 +196,7 @@ class _GridStencil:
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """Cell-major apply: x flat (N·m,), cell j owning x[j·m:(j+1)·m]."""
         gt = x.reshape(-1, self.m).T.reshape(self._fm_shape())
-        return torch.stack(self._apply_gt(gt), dim=-1).reshape(-1)
+        return self._apply_gt(gt).movedim(0, -1).reshape(-1)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         return self.matvec(x)
@@ -205,7 +205,7 @@ class _GridStencil:
         """Field-major apply: g (m, N) [flat] or (m, *grid) [grid_last] → the
         same shape. Same arithmetic as `matvec` without the (N,m)↔(m,N)
         relayouts."""
-        return torch.stack(self._apply_gt(g))
+        return self._apply_gt(g)
 
     def matvec_fm_flat(self, x: torch.Tensor) -> torch.Tensor:
         """Field-major apply on a flat (m·N,) vector whose x.reshape(m, ...)
@@ -220,10 +220,16 @@ class VaryingStencilOperator(_GridStencil):
 
         y[c] = Σ_off  C_off[c] @ x[c + off],   off ∈ {0, ±ex, ±ey, ±ez}
 
-    applied with `torch.roll` shifts and unrolled (m×m) multiply-adds.
-    Wall/Neumann boundaries need no masks: the assembled matrix has zero
-    blocks on the outward-facing boundary layers, so wrapped values are
-    multiplied by zero; a periodic wrap is the roll itself.
+    applied with `torch.roll` shifts and unrolled (m×m) multiply-adds, or,
+    for blocks larger than `_UNROLL_MAX`, one contraction per offset. Wall/Neumann
+    boundaries need no masks: the assembled matrix has zero blocks on the
+    outward-facing boundary layers, so wrapped values are multiplied by
+    zero; a periodic wrap is the roll itself.
+
+    `cells_per_site` > 1 groups consecutive cells into one grid site (a
+    supercell): the tet meshes number 6 tets per hex, hex-major, so each
+    site block is (6m × 6m) and the coupling between sites stays a 7-point
+    stencil.
 
     Layouts:
     - "flat": coefs (m, m, N) with the whole grid as the last axis and each
@@ -244,24 +250,29 @@ class VaryingStencilOperator(_GridStencil):
 
     @classmethod
     def from_blocks(cls, rows, cols, blocks, shape_xyz, *, device: torch.device,
-                    dtype: torch.dtype):
+                    dtype: torch.dtype, cells_per_site: int = 1):
         """rows/cols: block indices (nnzb,), blocks: (nnzb, m, m), e.g. a
-        BSR's block COO. shape_xyz: grid shape, cells numbered x fastest."""
+        BSR's block COO. shape_xyz: the site grid's shape, sites numbered x
+        fastest; cells_per_site consecutive block rows form one site."""
         check_real_dtype(dtype)
         rows = np.asarray(rows, dtype=np.int64)
         cols = np.asarray(cols, dtype=np.int64)
         blocks = np.asarray(blocks, dtype=np.float64)
         m = blocks.shape[-1]
+        g = int(cells_per_site)
         dims_xyz = tuple(int(v) for v in shape_xyz)
         nx = dims_xyz[0]
         ny = dims_xyz[1] if len(dims_xyz) > 1 else 1
         nz = dims_xyz[2] if len(dims_xyz) > 2 else 1
 
+        site_r, sub_r = rows // g, rows % g
+        site_c, sub_c = cols // g, cols % g
+
         def split(idx):
             return idx % nx, (idx // nx) % ny, idx // (nx * ny)
 
-        rx, ry, rz = split(rows)
-        cx, cy, cz = split(cols)
+        rx, ry, rz = split(site_r)
+        cx, cy, cz = split(site_c)
 
         def delta(a, b, n):
             d = (b - a) % n
@@ -275,24 +286,33 @@ class VaryingStencilOperator(_GridStencil):
 
         shape_zyx = (nz, ny, nx)
         N = nz * ny * nx
+        M = g * m
         key = (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1)
+        # each block entry's place in the (M, M, nz, ny, nx) coefficients,
+        # summed by one bincount in input order: the JAX package's np.add.at
+        # over its (site grid, sub_r, sub_c, m, m) array, without the
+        # transposes to (M, M, grid)
+        e = np.arange(m)
         offsets, coefs_np = [], []
         for k in np.unique(key):
             sel = key == k
-            C = _sum_blocks(rows[sel], blocks[sel], N).reshape(shape_zyx + (m, m))
+            ri = sub_r[sel, None] * m + e  # (n, m) row in the site block
+            cj = sub_c[sel, None] * m + e
+            place = (ri[:, :, None] * M + cj[:, None, :]) * N + site_r[sel, None, None]
+            C = np.bincount(place.reshape(-1), weights=blocks[sel].reshape(-1),
+                            minlength=M * M * N)
             offsets.append((int(k) // 9 - 1, (int(k) // 3) % 3 - 1, int(k) % 3 - 1))
-            coefs_np.append(C)
+            coefs_np.append(C.reshape((M, M) + shape_zyx))
 
         if cls._flat_safe(offsets, coefs_np, shape_zyx):
             # wrap-crossing layers all zero: flat rolls are exact
             strides = (ny * nx, nx, 1)
             flat_offsets = tuple(int(sum(o * s for o, s in zip(off, strides)))
                                  for off in offsets)
-            coefs = [C.reshape(-1, m, m).transpose(1, 2, 0) for C in coefs_np]
-            return cls.from_arrays(shape_zyx, m, flat_offsets, coefs, "flat",
+            coefs = [C.reshape(M, M, N) for C in coefs_np]
+            return cls.from_arrays(shape_zyx, M, flat_offsets, coefs, "flat",
                                    device=device, dtype=dtype)
-        coefs = [C.transpose(3, 4, 0, 1, 2) for C in coefs_np]
-        return cls.from_arrays(shape_zyx, m, tuple(offsets), coefs, "grid_last",
+        return cls.from_arrays(shape_zyx, M, tuple(offsets), coefs_np, "grid_last",
                                device=device, dtype=dtype)
 
     @classmethod
@@ -310,34 +330,49 @@ class VaryingStencilOperator(_GridStencil):
         around an axis carry an all-zero coefficient block (wall/Neumann
         assemblies): a flat roll then differs from the per-axis rolls only
         where it is multiplied by zero."""
-        for off, C in zip(offsets, coefs_np):
+        for off, C in zip(offsets, coefs_np):  # C: (M, M, nz, ny, nx)
             for ax, o in enumerate(off):
                 if o == 0:
                     continue
-                idx = [slice(None)] * 3
-                idx[ax] = shape_zyx[ax] - 1 if o > 0 else 0
+                idx = [slice(None)] * 5
+                idx[2 + ax] = shape_zyx[ax] - 1 if o > 0 else 0
                 if np.any(C[tuple(idx)]):
                     return False
         return True
 
     @classmethod
-    def from_csr(cls, A, shape_xyz, dtype: torch.dtype | None = None):
+    def from_csr(cls, A, shape_xyz, dtype: torch.dtype | None = None,
+                 cells_per_site: int = 1):
         """Scalar (m = 1) variant from a CSRMatrix."""
         sp = A.to_scipy().tocoo()
         return cls.from_blocks(sp.row, sp.col, sp.data.reshape(-1, 1, 1), shape_xyz,
-                               device=A.data.device, dtype=dtype or A.data.dtype)
+                               device=A.data.device, dtype=dtype or A.data.dtype,
+                               cells_per_site=cells_per_site)
 
     @classmethod
-    def from_bsr(cls, A, shape_xyz, dtype: torch.dtype | None = None):
+    def from_bsr(cls, A, shape_xyz, dtype: torch.dtype | None = None,
+                 cells_per_site: int = 1):
         """Block variant from a BSRMatrix (its block COO)."""
         rows, cols, blocks = A.coo_numpy()
         return cls.from_blocks(rows, cols, blocks, shape_xyz, device=A.blocks.device,
-                               dtype=dtype or A.blocks.dtype)
+                               dtype=dtype or A.blocks.dtype, cells_per_site=cells_per_site)
 
-    def _apply_gt(self, gt: torch.Tensor) -> list[torch.Tensor]:
+    # the m² multiply-adds are unrolled for small blocks only; a supercell's
+    # (M = 24 for the tet wave system: 576 terms, some 4,000 launches per
+    # apply unrolled) is one contraction per offset, the JAX package's
+    # einsum. It is a product and a sum over j here: torch.einsum would run
+    # it as a bmm over N strided 24×24 blocks, copying each of them per call
+    _UNROLL_MAX = 8
+
+    def _apply_gt(self, gt: torch.Tensor) -> torch.Tensor:
         """Core apply on the field-major gt (m, N) [flat] or (m, *grid)
-        [grid_last]; returns the m output components."""
+        [grid_last]; the output has its shape."""
         m = self.m
+        if m > self._UNROLL_MAX:
+            y = torch.zeros_like(gt)
+            for off, C in zip(self.offsets, self.coefs):
+                y = y + (C * _neighbour(gt, off, self.layout).unsqueeze(0)).sum(dim=1)
+            return y
         ys = [torch.zeros(gt.shape[1:], dtype=gt.dtype, device=gt.device) for _ in range(m)]
         for off, C in zip(self.offsets, self.coefs):
             nbr = _neighbour(gt, off, self.layout)
@@ -346,8 +381,94 @@ class VaryingStencilOperator(_GridStencil):
                 for j in range(m):
                     acc = acc + C[i, j] * nbr[j]
                 ys[i] = acc
-        return ys
+        return torch.stack(ys)
 
+
+class SupercellStencilOperator:
+    """Block-sparse SpMV for supercell meshes (cells_per_site = g > 1; the
+    tet meshes: 6 tets per hex, site blocks 24×24 for the wave system).
+
+    Most of the dense supercell form's coefficients are structural zeros:
+    inside a hex only the tets that share a face couple (18 of the 36
+    sub-blocks of the diagonal offset), and a hex face split into two
+    triangles couples two tet pairs with the neighbouring hex. This class
+    keeps, per offset, the non-zero (sub_row, sub_col) m×m sub-blocks,
+    detected from the assembled coefficients (`from_varying`), so any
+    supercell pattern works. Its coefficients are the dense form's own.
+
+    The apply is batched per offset: for each sub-row that has sub-blocks,
+    its K sub-columns (fewer padded with zero blocks) are gathered from the
+    rolled state and contracted with their coefficients in one product and
+    one sum over (k, j); the sums are added into their sub-rows. The JAX
+    package's apply adds the m·K terms of a sub-row one by one, so the two
+    round differently (summation order only)."""
+
+    def __init__(self, shape_zyx, m: int, g: int, offsets, pair_idx, rows, cols, coefs):
+        self.shape_zyx = tuple(int(v) for v in shape_zyx)
+        self.m = int(m)  # per-cell block size (dim+1)
+        self.g = int(g)  # cells per site
+        self.offsets = tuple(int(o) for o in offsets)  # flat ints, the diagonal included
+        self.pair_idx = tuple(pair_idx)  # per offset: the (sub_r, sub_c) with data
+        self.rows = tuple(rows)  # per offset: (R,) int64, the sub-rows with data
+        self.cols = tuple(cols)  # per offset: (R, K) int64, their sub-columns
+        self.coefs = tuple(coefs)  # per offset: (R, K, m, m, N), zero where padded
+
+    @property
+    def M(self) -> int:
+        return self.m * self.g
+
+    @classmethod
+    def from_varying(cls, V: VaryingStencilOperator, m: int, g: int, tol: float = 0.0):
+        """Decompose a flat-layout supercell VaryingStencilOperator (V.m ==
+        m·g) into its non-zero m×m sub-blocks; None if V is not in that form."""
+        if V.layout != "flat" or V.m != m * g:
+            return None
+        offsets, pair_idx, rows, cols, coefs = [], [], [], [], []
+        device, dtype = V.coefs[0].device, V.coefs[0].dtype
+        for off, Ct in zip(V.offsets, V.coefs):
+            Cn = Ct.cpu().numpy()  # (M, M, N)
+            pairs = [(sr, sc) for sr in range(g) for sc in range(g)
+                     if np.abs(Cn[sr * m:(sr + 1) * m, sc * m:(sc + 1) * m]).max() > tol]
+            if not pairs:
+                continue
+            sub_rows = sorted({sr for sr, _ in pairs})
+            K = max(sum(1 for sr, _ in pairs if sr == r) for r in sub_rows)
+            col = np.zeros((len(sub_rows), K), dtype=np.int64)
+            C = np.zeros((len(sub_rows), K, m, m, Cn.shape[-1]), dtype=Cn.dtype)
+            for a, r in enumerate(sub_rows):
+                for k, sc in enumerate(sc for sr, sc in pairs if sr == r):
+                    col[a, k] = sc
+                    C[a, k] = Cn[r * m:(r + 1) * m, sc * m:(sc + 1) * m]
+            offsets.append(int(off))
+            pair_idx.append(tuple(pairs))
+            rows.append(torch.as_tensor(sub_rows, dtype=torch.int64, device=device))
+            cols.append(torch.as_tensor(col, device=device))
+            coefs.append(torch.from_numpy(C).to(device=device, dtype=dtype))
+        return cls(V.shape_zyx, m, g, offsets, pair_idx, rows, cols, coefs)
+
+    def _apply_gt(self, gt: torch.Tensor) -> torch.Tensor:
+        """gt (M, N_sites) field-major → the same shape."""
+        g, m = self.g, self.m
+        y = torch.zeros((g, m) + gt.shape[1:], dtype=gt.dtype, device=gt.device)
+        for off, rows, cols, C in zip(self.offsets, self.rows, self.cols, self.coefs):
+            nbr = (torch.roll(gt, -off, dims=1) if off else gt).reshape((g, m) + gt.shape[1:])
+            x = nbr[cols]  # (R, K, m, N): each sub-row's sub-columns
+            y.index_add_(0, rows, (C * x.unsqueeze(2)).sum(dim=(1, 3)))
+        return y.reshape(gt.shape)
+
+    def matvec_fm(self, g: torch.Tensor) -> torch.Tensor:
+        """Field-major apply: g (M, N_sites) → the same shape."""
+        return self._apply_gt(g)
+
+    def matvec_fm_flat(self, x: torch.Tensor) -> torch.Tensor:
+        return self._apply_gt(x.reshape(self.M, -1)).reshape(-1)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Cell-major flat apply (site-interleaved rows, as the BSR)."""
+        return self._apply_gt(x.reshape(-1, self.M).T).T.reshape(-1)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.matvec(x)
 
 
 class WaveNormalStencilOperator(_GridStencil):
@@ -427,8 +548,8 @@ class WaveNormalStencilOperator(_GridStencil):
         return cls(shape_zyx, c0, offsets, layout,
                    tuple(_to(a, device, dtype) for a in (diag, s, nvec)))
 
-    def _apply_gt(self, gt: torch.Tensor) -> list[torch.Tensor]:
-        """Core apply on the field-major representation; returns m outputs."""
+    def _apply_gt(self, gt: torch.Tensor) -> torch.Tensor:
+        """Core apply on the field-major representation (its shape out)."""
         diag, s, nvec = self.arrays
         m = self.m
         dim = m - 1
@@ -449,4 +570,4 @@ class WaveNormalStencilOperator(_GridStencil):
             ys[0] = ys[0] + half_c0 * s[k] * (self.c0 * t - p)
             for d in range(dim):
                 ys[1 + d] = ys[1 + d] + u * nvec[k, d]
-        return ys
+        return torch.stack(ys)

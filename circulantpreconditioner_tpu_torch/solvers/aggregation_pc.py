@@ -11,16 +11,15 @@ inverse (one matmul). Two hierarchies:
   block rows form the aggregates, so the transfers are reshapes, sums and
   broadcasts; the coarse operators are clustered-window SpMVs
   (ops/window_spmv.py); ω = 1.
-- `GridVCyclePC` (meshes whose topology is a grid, the warped Kershaw
-  hexahedra; one cell per grid site): each level coarsens 2×2×2 boxes of
-  sites and applies its operator as a gather-free 7-point varying stencil;
-  the fine level uses the model's own operators (kernel K2 on the GPU). The
-  ω = 0.8 damping is load-bearing: undamped block-Jacobi smoothing amplifies
-  high-frequency error on the upwind wave operator.
-
-The supercell first level of the grid hierarchy (cells_per_site > 1), with
-the field-major transfers of `_Level` it needs, waits for ROADMAP.md, queue 1
-(the tet and supercell path).
+- `GridVCyclePC` (meshes whose topology is a grid: the warped Kershaw
+  hexahedra, and the tet meshes with their 6 cells per grid site): on a
+  supercell mesh the first level aggregates the cells of each site (an
+  aggregation level, in both layouts), then each level coarsens 2×2×2 boxes
+  of sites and applies its operator as a gather-free 7-point varying
+  stencil; the fine level uses the caller's operators (the model's: kernel
+  K2 on the GPU for the Kershaw hexahedra). The ω = 0.8 damping is
+  load-bearing: undamped block-Jacobi smoothing amplifies high-frequency
+  error on the upwind wave operator.
 """
 
 from __future__ import annotations
@@ -47,6 +46,7 @@ class _Level:
     b: int                 # block size
     factor: int            # aggregation factor to the next level
     n_agg: int             # block rows at the next level
+    A_fm: Callable | None = None  # field-major flat operator apply (grid PCs only)
 
 
 def _smooth(L: _Level, omega: float, r: torch.Tensor) -> torch.Tensor:
@@ -66,6 +66,26 @@ def _restrict(L: _Level, r: torch.Tensor) -> torch.Tensor:
 def _prolong(L: _Level, zc: torch.Tensor) -> torch.Tensor:
     zb = zc.reshape(L.n_agg, 1, L.b).expand(L.n_agg, L.factor, L.b)
     return zb.reshape(-1, L.b)[:L.n].reshape(-1)
+
+
+# field-major variants: vectors are flat with x.reshape(factor·b, n_agg) as
+# the field view, the supercell layout; valid when n == factor·n_agg (the
+# cells-per-site aggregation of GridVCyclePC.from_grid_model)
+
+
+def _smooth_fm(L: _Level, omega: float, g: torch.Tensor) -> torch.Tensor:
+    gk = g.reshape(L.factor, L.b, L.n_agg)
+    DT = L.Dinv.reshape(L.n_agg, L.factor, L.b, L.b)
+    z = torch.einsum("nkij,kjn->kin", DT, gk).reshape(-1)
+    return omega * z if omega != 1.0 else z
+
+
+def _restrict_fm(L: _Level, g: torch.Tensor) -> torch.Tensor:
+    return (g.reshape(L.factor, L.b, L.n_agg).sum(dim=0) * L.cnt_inv[None, :]).reshape(-1)
+
+
+def _prolong_fm(L: _Level, zc: torch.Tensor) -> torch.Tensor:
+    return zc.reshape(1, L.b, L.n_agg).expand(L.factor, L.b, L.n_agg).reshape(-1)
 
 
 @dataclass
@@ -144,8 +164,9 @@ def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
     if isinstance(L, _GridLevel):
         smooth, restrict, prolong = ((_grid_smooth_fm, _grid_restrict_fm, _grid_prolong_fm) if fm
                                      else (_grid_smooth, _grid_restrict, _grid_prolong))
-    else:  # an aggregation level (cell-major only: GridVCyclePC alone has apply_fm)
-        smooth, restrict, prolong = _smooth, _restrict, _prolong
+    else:
+        smooth, restrict, prolong = ((_smooth_fm, _restrict_fm, _prolong_fm) if fm
+                                     else (_smooth, _restrict, _prolong))
     A = L.A_fm if fm else L.A
     z = smooth(L, omega, r)
     for _ in range(n_smooth[0] - 1):
@@ -236,15 +257,13 @@ class GridVCyclePC(AggregationVCyclePC):
                         dtype: torch.dtype | None = None):
         """Preconditioner of A = shift·I + D. A0_apply / A0_apply_fm: the
         production fine-level matvecs (cell-major flat / field-major flat);
-        built from D's varying stencil where None."""
+        where either is None, both missing ones come from D's varying stencil
+        (on a supercell mesh its dense (cps·b)² form, 8× the block-sparse
+        one: pass the model's own to avoid it)."""
         import scipy.sparse as sp
 
         from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
 
-        if int(cells_per_site) != 1:
-            raise NotImplementedError("GridVCyclePC with cells_per_site > 1 (the supercell "
-                                      "first level) is not ported yet: see ROADMAP.md, "
-                                      "slice 2, item 19")
         device = D.blocks.device
         dtype = dtype or D.blocks.dtype
         b = D.block_size
@@ -253,7 +272,8 @@ class GridVCyclePC(AggregationVCyclePC):
         A0 = (shift * sp.identity(D.shape[0], format="csr")
               + D.to_scipy().astype(np.float64)).tocsr()
         if A0_apply is None or A0_apply_fm is None:
-            op0 = VaryingStencilOperator.from_bsr(D, shape_xyz, dtype=dtype)
+            op0 = VaryingStencilOperator.from_bsr(D, shape_xyz, dtype=dtype,
+                                                  cells_per_site=cells_per_site)
             if A0_apply is None:
                 A0_apply = functools.partial(_shifted_apply, op0.matvec, shift)
             if A0_apply_fm is None and op0.layout == "flat":
@@ -261,8 +281,18 @@ class GridVCyclePC(AggregationVCyclePC):
 
         levels = []
         A_l = A0
+        cps = int(cells_per_site)
+        if cps > 1:
+            # level 0 → 1: the cps cells of each site, contiguous in the
+            # hex-major numbering, so the transfers are reshapes (_Level)
+            n0, n_sites = A0.shape[0] // b, int(np.prod(shape_xyz))
+            levels.append(_Level(A=A0_apply, Dinv=_block_diag_inv(A_l, b, device, dtype),
+                                 cnt_inv=torch.full((n_sites,), 1.0 / cps, device=device,
+                                                    dtype=dtype),
+                                 n=n0, b=b, factor=cps, n_agg=n_sites, A_fm=A0_apply_fm))
+            A_l = _galerkin_chunk(A_l, b, n0, cps, n_sites)
         shape = tuple(int(v) for v in shape_xyz)
-        first = True
+        first = cps == 1
         while int(np.prod(shape)) > bottom_max:
             cshape = tuple(-(-s // 2) for s in shape)
             nx, ny, nz = shape
@@ -293,15 +323,21 @@ class GridVCyclePC(AggregationVCyclePC):
         return cls(levels, bot_inv, n_smooth=n_smooth, omega=omega, b=b)
 
     def apply_fm(self, g: torch.Tensor) -> torch.Tensor:
-        """Field-major flat apply (g.reshape(b, n) is the field view), with
-        no relayout above the bottom level. Raises when a level has no
-        field-major operator (a grid_last, i.e. periodic, level)."""
+        """Field-major flat apply (g.reshape(b, n) is the field view, or, on a
+        supercell fine level, g.reshape(cps·b, n_sites)), with no relayout
+        above the bottom level. Raises when a level has no field-major
+        operator (a grid_last, i.e. periodic, level)."""
         missing = [l for l, L in enumerate(self.levels) if L.A_fm is None]
         if missing:
             raise ValueError(f"GridVCyclePC.apply_fm: levels {missing} have no field-major "
                              "operator (periodic grid_last stencils); use apply")
         return _vcycle(self.levels, self.bot_inv, self.n_smooth, self.omega, 0, g, fm=True,
                        bot_b=self.b)
+
+
+def _galerkin_chunk(A_csr, b: int, n: int, factor: int, n_agg: int):
+    """Galerkin R·A·P over chunks of `factor` consecutive block rows."""
+    return _galerkin_map(A_csr, b, np.arange(n) // factor, n_agg)
 
 
 def _galerkin_map(A_csr, b: int, agg: np.ndarray, n_agg: int):

@@ -49,8 +49,7 @@ def test_driver_checkpoint_output(tmp_path):
     assert it == res.iterations and np.array_equal(state, res.state.numpy())
 
 
-@pytest.mark.parametrize("extra", [["--mesh-family", "tetra"], ["--vtk"],
-                                   ["--shard", "slab"]])
+@pytest.mark.parametrize("extra", [["--med"], ["--vtk"], ["--shard", "slab"]])
 def test_unported_driver_options_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_fft.main(_args(tmp_path, ["4", "4", "4", "--device", "cpu"] + extra))

@@ -2,8 +2,9 @@
 plain versions, one GMRES step preconditioned through K1, one grid-V-cycle
 GMRES step on the wave system through K2, the staged DFT solve through K3,
 one dct2lm GMRES step through K2, and the paths with no hand-written kernel
-(ILU(0) and block-Jacobi ILU(0), diffusion, the aggregation V-cycle) on the
-card against the CPU. They skip without a GPU.
+(ILU(0) and block-Jacobi ILU(0), diffusion, the aggregation V-cycle, the
+supercell SpMV and V-cycle of the tet meshes) on the card against the CPU.
+They skip without a GPU.
 
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
@@ -365,3 +366,60 @@ def test_aggvcycle_gmres_step_on_card(cuda):
     (x, _, iters, _, converged), ref = steps
     assert converged and ref[4] and abs(iters - ref[2]) <= 1
     assert (x.double().cpu() - ref[0]).abs().max().item() <= 1e-4 * ref[0].abs().max().item()
+
+
+def _tet_wave(n, device, dtype, cfl=1e3 / 3):
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_tet_mesh
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+
+    return WaveSystem(kershaw_tet_mesh(((0.0, 1.0),) * 3, (n,) * 3), cfl=cfl, device=device,
+                      dtype=dtype)
+
+
+@pytest.mark.gpu
+def test_supercell_spmv_on_card(cuda):
+    """Kershaw-tet 12³: the block-sparse supercell SpMV (field-major) and the
+    dense M = 24 one (cell-major) on the card against the CPU float64 result,
+    to 1e-5 · max|y|."""
+    from circulantpreconditioner_tpu_torch.ops.stencil import SupercellStencilOperator
+
+    gpu, cpu = _tet_wave(12, cuda, torch.float32), _tet_wave(12, torch.device("cpu"),
+                                                               torch.float64)
+    assert isinstance(gpu.divergence_op_fm().__self__, SupercellStencilOperator)
+    x = np.random.default_rng(16).standard_normal(gpu.divergence.shape[0])
+    g = x.reshape(-1, 24).T.copy()
+    y_fm = gpu.divergence_op_fm()(torch.as_tensor(g, device=cuda, dtype=torch.float32))
+    y_cm = gpu.divergence_op()(torch.as_tensor(x, device=cuda, dtype=torch.float32))
+    ref = cpu.divergence.matvec(torch.as_tensor(x)).numpy()
+    scale = np.abs(ref).max()
+    assert np.abs(y_fm.double().cpu().numpy().T.reshape(-1) - ref).max() <= 1e-5 * scale
+    assert np.abs(y_cm.double().cpu().numpy() - ref).max() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+def test_supercell_vcycle_on_card(cuda):
+    """The supercell grid V-cycle at Kershaw-tet 8³, field-major over the
+    block-sparse operator (bench_suite.py's route): one apply on the card
+    against the CPU float64 apply to 1e-4 · max|z|, and a right-preconditioned
+    field-major GMRES step within one iteration of the CPU's."""
+    import functools
+
+    from circulantpreconditioner_tpu_torch.models.transport import _identity_plus
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+    from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
+
+    out = []
+    r = np.random.default_rng(17).standard_normal(8**3 * 24)
+    for device, dtype in ((cuda, torch.float32), (torch.device("cpu"), torch.float64)):
+        model = _tet_wave(8, device, dtype)
+        A_fm = functools.partial(_identity_plus, model.divergence_op_fm(flat=True))
+        pc = GridVCyclePC.from_grid_model(model.divergence, model.mesh.topology_shape,
+                                          cells_per_site=6, A0_apply=A_fm, A0_apply_fm=A_fm,
+                                          shift=1.0)
+        z = pc.apply_fm(torch.as_tensor(r, device=device, dtype=dtype))
+        G0 = model.pack_fm(model.initial_state()).reshape(-1)
+        res = make_gmres(A_fm, pc.apply_fm, side="right")(G0, G0)
+        out.append((z.double().cpu().numpy(), res))
+    (z, res), (z64, ref) = out
+    assert np.abs(z - z64).max() <= 1e-4 * np.abs(z64).max()
+    assert res.converged and ref.converged and abs(res.iters - ref.iters) <= 1

@@ -5,8 +5,11 @@ the same step count, the same GMRES iterations in every step, and final
 states within 1e-10 × max|U|. GMRES without a
 preconditioner runs at --cfl 10 on the Kershaw mesh: at the default cfl
 1e3/3 it amplifies roundoff past any such bound (see
-test_torch_wave_model.py). Also the CLI repairs: --kershaw-eps,
-make_output_cb(split=...) and the hexa/kershaw mesh families."""
+test_torch_wave_model.py). The tet meshes (--mesh-family tetra|kershawtet)
+take the JAX drivers' routes: cell-major GMRES over the dense supercell
+stencil with the grid V-cycle's cell-major apply, and the field-major
+block-sparse supercell loop for the explicit driver. Also the CLI repairs:
+--kershaw-eps, make_output_cb(split=...) and the mesh families."""
 
 import argparse
 
@@ -68,7 +71,7 @@ def test_shard_rows_raises_naming_its_item(tmp_path):
         t_imp.main(_args(tmp_path, CART + ["--shard", "rows", "--device", "cpu"]))
 
 
-@pytest.mark.parametrize("extra", [["--mesh-family", "kershawtet"], ["--shard", "slab"]])
+@pytest.mark.parametrize("extra", [["--msh", "mesh.msh"], ["--shard", "slab"]])
 def test_wave_explicit_unported_options_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_exp.main(_args(tmp_path, ["4", "4", "4", "--device", "cpu"] + extra))
@@ -91,7 +94,9 @@ def test_kershaw_eps_option(tmp_path):
 @pytest.mark.parametrize("argv,name,shape", [
     (["--mesh-family", "hexa", "4", "3", "2"], "hexa_4x3x2", (4, 3, 2)),
     (["--mesh-family", "kershaw", "4"], "kershaw_4x4x4", (4, 4, 4)),
-    (["--mesh-family", "hexa", "5", "3"], "hexa_5x3x3", (5, 3, 3))])
+    (["--mesh-family", "hexa", "5", "3"], "hexa_5x3x3", (5, 3, 3)),
+    (["--mesh-family", "tetra", "3", "2", "4"], "tetra_3x2x4", (3, 2, 4)),
+    (["--mesh-family", "kershawtet", "4", "3"], "kershawtet_4x3x3", (4, 3, 3))])
 def test_build_mesh_families(argv, name, shape):
     mj = j_common.build_mesh(j_common.base_parser("x").parse_args(argv))
     mt = t_common.build_mesh(t_common.base_parser("x").parse_args(argv))
@@ -119,3 +124,24 @@ def test_make_output_cb_split_and_checkpoint(tmp_path):
     args.vtk = True
     with pytest.raises(NotImplementedError, match="item 23b"):
         t_common.make_output_cb(args, mesh, split=lambda U: (U, U))
+
+
+def test_tet_implicit_gridmg_driver_matches_jax(tmp_path, capsys):
+    """wave_implicit --pc gridmg on Kershaw-tet 6³, the JAX driver's route:
+    cell-major GMRES (no field-major loop on a supercell mesh)."""
+    argv = _args(tmp_path, ["--mesh-family", "kershawtet", "6", "6", "6", "--pc", "gridmg"],
+                 ntmax=2)
+    rt = t_imp.main(argv + ["--device", "cpu"])
+    assert "field-major" not in capsys.readouterr().out
+    rj = j_imp.main(argv)
+    assert "field-major" not in capsys.readouterr().out
+    _same(rt, rj)
+    assert all(d["extras"][2] for d in rt.diagnostics)
+
+
+def test_tet_explicit_driver_matches_jax(tmp_path, capsys):
+    """wave_explicit on tetra 4³: the field-major supercell loop in both."""
+    argv = _args(tmp_path, ["--mesh-family", "tetra", "4", "4", "4"], ntmax=5)
+    rt = t_exp.main(argv + ["--device", "cpu"])
+    assert "-- field-major stencil loop" in capsys.readouterr().out
+    _same(rt, j_exp.main(argv))

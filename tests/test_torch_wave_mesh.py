@@ -106,5 +106,11 @@ def test_polygon_area_normal_center_matches_jax():
 
 
 def test_non_hex_cells_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tu.build_mesh_from_cells(np.eye(4, 3), [(0, 1, 2, 3)])
+    """Cells that are neither hexes nor tets need their face table
+    (cell_faces), as in the JAX package; tets take the vectorised path."""
+    pts = np.random.default_rng(1).random((6, 3))
+    for build in (tu.build_mesh_from_cells, ju.build_mesh_from_cells):
+        with pytest.raises(ValueError, match="unsupported vertex count 6"):
+            build(pts, [(0, 1, 2, 3, 4, 5)])
+    tet = tu.build_mesh_from_cells(np.eye(4, 3), [(0, 1, 2, 3)])
+    np.testing.assert_allclose(tet.cell_volume, [1.0 / 6], rtol=1e-14)

@@ -105,7 +105,8 @@ def test_grid_vcycle_matches_jax():
 
 def test_grid_vcycle_levels_and_transfers():
     """Odd extents (truncated boxes): restriction of a prolonged vector is the
-    identity, in both layouts; a periodic level has no field-major form."""
+    identity, in both layouts, on grid levels and on a supercell mesh's
+    first level; a periodic level has no field-major form."""
     from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh
     from circulantpreconditioner_tpu_torch.solvers import aggregation_pc as ag
 
@@ -121,9 +122,19 @@ def test_grid_vcycle_levels_and_transfers():
     zc = torch.as_tensor(np.random.default_rng(3).standard_normal(12 * b))
     _close(ag._grid_restrict(L, ag._grid_prolong(L, zc)), zc, 1e-15)
     _close(ag._grid_restrict_fm(L, ag._grid_prolong_fm(L, zc)), zc, 1e-15)
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TGrid.from_grid_model(_models((4, 4, 4), 1.0)[1].divergence, (4, 4, 4),
-                              cells_per_site=6)
+    # a supercell mesh (6 tets per site): an aggregation level first, whose
+    # transfers are reshapes in both layouts
+    from circulantpreconditioner_tpu_torch.mesh import tet_mesh
+
+    tet = TWave(tet_mesh(((-0.5, 0.5),) * 3, (4, 4, 4)), cfl=1.0, device=CPU,
+                dtype=torch.float64)
+    pt = TGrid.from_grid_model(tet.divergence, (4, 4, 4), cells_per_site=6, bottom_max=8)
+    L0 = pt.levels[0]
+    assert isinstance(L0, ag._Level) and (L0.n, L0.factor, L0.n_agg) == (384, 6, 64)
+    assert [type(L) for L in pt.levels[1:]] == [ag._GridLevel] and pt.n_levels == 3
+    zc = torch.as_tensor(np.random.default_rng(4).standard_normal(64 * b))
+    _close(ag._restrict(L0, ag._prolong(L0, zc)), zc, 1e-15)
+    _close(ag._restrict_fm(L0, ag._prolong_fm(L0, zc)), zc, 1e-15)
     per = TWave(cartesian_mesh(((-0.5, 0.5),) * 3, (12, 10, 8), periodic=True), cfl=10.0,
                 device=CPU, dtype=torch.float64)
     pc = TGrid.from_grid_model(per.divergence, (12, 10, 8), bottom_max=100)
