@@ -117,6 +117,21 @@ Phases, one stdout line each (more for the drivers' own logs):
    --pc gridmg (the JAX driver's route: cell-major GMRES over the dense
    M = 24 stencil, the cycle's cell-major apply) and wave_explicit
    --mesh-family tetra, 2 steps each.
+19. mesh files: (a) path D from a Gmsh file of Kershaw 64³ with shared
+   vertices: the host seconds of read, weld and topology recovery; the
+   recovered mesh equal to kershaw_mesh's bit for bit; wave_implicit <file>
+   --pc gridmg for 2 steps: phase 9's iterations and K2 launches, the state
+   within 1e-6 of phase 9's; (d) one such step under utils.profiling.trace
+   (the Chrome trace must name K2's kernel), timed and StepMetrics; (b) a
+   Kershaw-tet 16³ file with each cell's own vertices: read_mesh welds it,
+   finds no non-conforming pair and no grid, and RCM-orders it; its cell
+   centres and volumes equal kershaw_tet_mesh's (1e-12); the window SpMV
+   within 1e-5 of the BSR matvec; wave_implicit <file> --pc circulant2l
+   --vtk for 2 steps, each converged, ‖(I+D)U_k − U_k−1‖/‖U_k−1‖ ≤ 1e-4 from
+   the states the VTK files hold; (c) wave_explicit <Kershaw 16³ file> --vtk,
+   3 steps: 3 files, each with the mesh's cell count in its headers. No MED
+   file: the GPU host has no h5py, and the phase checks that h5py was not
+   imported.
 Paths G to J launch none of K1, K2 and K3; their launch counts are printed
 (0 expected) and checked.
 
@@ -134,6 +149,7 @@ Any failed check raises, and the script exits non-zero without that line.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -348,7 +364,8 @@ def k2_expected_launches(its: list[int], pc_fine_applies: int, restart: int = 30
 
 def wave_phases(dev: torch.device, smi: str) -> dict:
     """Phases 7 to 10: kernel K2 and the wave system's main paths C and D at
-    Kershaw 64³. Returns K2's entry of the kernels line."""
+    Kershaw 64³. Returns K2's entry of the kernels line, the 64³ mesh, the
+    implicit model and path D's iterations, K2 launches and final state."""
     import dataclasses
     import functools
     import time
@@ -596,7 +613,8 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
                                  "wave_implicit pbjacobi 16^3": k2_p},
             "max_abs_err": k2_err, "ms": gms["K2"], "plain_ms": gms["K2 plain"],
             "events_ms": ms["K2"], "bound_ms": k2_bound, "bound_by": k2_by,
-            "algorithm_bound_ms": k2_bound, "library_ms": lib_graph}, mesh, mi
+            "algorithm_bound_ms": k2_bound, "library_ms": lib_graph}, mesh, mi, {
+                "its": its, "k2": k2_i, "state": res_i.state}
 
 
 def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
@@ -1383,6 +1401,201 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     return launched
 
 
+def write_gmsh(path: str, points, cells) -> str:
+    """A Gmsh MSH 2.2 ASCII file of hexahedra (type 5) or tetrahedra (type 4),
+    node ids from 1 in order, coordinates to 17 significant digits (exact)."""
+    points, cells = np.asarray(points, dtype=np.float64), np.asarray(cells, dtype=np.int64)
+    etype = {4: 4, 8: 5}[cells.shape[1]]
+    with open(path, "w") as f:
+        f.write(f"$MeshFormat\n2.2 0 8\n$EndMeshFormat\n$Nodes\n{len(points)}\n")
+        np.savetxt(f, np.column_stack([np.arange(1, len(points) + 1), points]),
+                   fmt="%d %.17g %.17g %.17g")
+        f.write(f"$EndNodes\n$Elements\n{len(cells)}\n")
+        np.savetxt(f, np.column_stack([np.arange(1, len(cells) + 1),
+                                       np.tile([etype, 2, 0, 1], (len(cells), 1)), cells + 1]),
+                   fmt="%d")
+        f.write("$EndElements\n")
+    return path
+
+
+def read_vtk_cells(path: str) -> tuple[dict[str, int], np.ndarray]:
+    """The header counts (CELLS, CELL_TYPES, CELL_DATA) of a write_vtk file of
+    a wave state and its cell-major state (nC, 4): pressure, then velocity."""
+    lines = open(path).read().split("\n")
+    counts = {ln.split()[0]: int(ln.split()[1]) for ln in lines
+              if ln.split()[:1] in (["CELLS"], ["CELL_TYPES"], ["CELL_DATA"])}
+    n = counts["CELL_DATA"]
+    i = lines.index("SCALARS pressure double 1") + 2
+    j = lines.index("VECTORS velocity double") + 1
+    p = np.array(lines[i:i + n], dtype=np.float64)
+    v = np.array(" ".join(lines[j:j + n]).split(), dtype=np.float64).reshape(n, 3)
+    return counts, np.column_stack([p, v])
+
+
+def mesh_file_phases(dev: torch.device, smi: str, mesh64, path_d) -> dict[str, int]:
+    """Phase 19: mesh files on the card. Path D from a Gmsh file of Kershaw
+    64³ (19a), the FFT projection PC on a Kershaw-tet file with duplicated
+    vertices (19b), the VTK writer (19c), the profiling utilities (19d).
+    Returns K2's launches by file path."""
+    from circulantpreconditioner_tpu_torch.drivers import wave_explicit, wave_implicit
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh, kershaw_tet_mesh, read_mesh
+    from circulantpreconditioner_tpu_torch.mesh.conforming import count_nonconforming_pairs
+    from circulantpreconditioner_tpu_torch.mesh.topology import recover_grid_topology
+    from circulantpreconditioner_tpu_torch.mesh.unstructured import read_gmsh, weld_points
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+    from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
+    from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
+    from circulantpreconditioner_tpu_torch.utils.profiling import StepMetrics, timed, trace
+
+    t_phase = time.perf_counter()
+    cube = ((-0.5, 0.5),) * 3
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        common = ["--tmax", "1e9", "--device", "cuda", "--result-dir", f"{tmp}/out"]
+        # --- 19a: path D from a Gmsh file of Kershaw NW^3 --------------------
+        host = {}
+        with timed(host, "write"):
+            path = write_gmsh(f"{tmp}/kershaw{NW}.msh", mesh64.points, mesh64.cell_vertices)
+        with timed(host, "read (parse, weld, faces)"):
+            m = read_gmsh(path)
+        with timed(host, "of which weld"):
+            weld_points(m.points)
+        with timed(host, "topology recovery"):
+            recovered = recover_grid_topology(m)
+        arrays = ("points", "cell_center", "cell_volume", "face_cells", "face_normal",
+                  "face_area", "face_center", "face_group")
+        same = all(np.array_equal(getattr(m, a), getattr(mesh64, a)) for a in arrays)
+        print(f"[19a mesh file] Kershaw {NW}^3 Gmsh file ({os.path.getsize(path) / 1e6:.1f} MB, "
+              f"shared vertices), host seconds: " + ", ".join(f"{k} {v:.2f}" for k, v in
+                                                            host.items())
+              + f"; topology_shape {getattr(m, 'topology_shape', None)}, welded {m.welded_nodes}, "
+              f"every mesh array equal to kershaw_mesh's bit for bit: {same}", flush=True)
+        check(recovered and m.topology_shape == (NW,) * 3 and same,
+              f"the Kershaw {NW}^3 file did not give kershaw_mesh's grid")
+        reset_kernel_launches()
+        res = wave_implicit.main([path, "--pc", "gridmg", "--ntmax", "2"] + common)
+        k2 = kernel_launches()["K2"]
+        its = [d["extras"][0] for d in res.diagnostics]
+        conv = [d["extras"][2] for d in res.diagnostics]
+        U9 = path_d["state"]
+        rel = (res.state - U9).abs().max().item() / U9.abs().max().item()
+        print(f"[19a main path D from a file] wave_implicit {os.path.basename(path)} --pc gridmg: "
+              f"iterations {its} (phase 9: {path_d['its']}), converged {conv}, K2 launches {k2} "
+              f"(phase 9: {path_d['k2']}), max|U - U_phase9|/max|U_phase9| {rel:.3e} (tol 1e-6; "
+              f"bit for bit: {bool(torch.equal(res.state, U9))}), ms/step "
+              f"{[round(t * 1e3, 1) for t in res.step_seconds]}; {smi}", flush=True)
+        check(its == path_d["its"] and all(conv) and k2 == path_d["k2"] and rel <= 1e-6,
+              f"path D from the file: iterations {its}, K2 launches {k2}, deviation {rel:.3e}")
+        launches[f"D wave_implicit gridmg from a Gmsh file {NW}^3"] = k2
+
+        # --- 19d: one 19a step under the profiling utilities ------------------
+        model = WaveSystem(m, cfl=1e3 / 3, device=dev, dtype=torch.float32)
+        pc = GridVCyclePC.from_grid_model(model.divergence, m.topology_shape,
+                                          A0_apply=model.implicit_matvec(),
+                                          A0_apply_fm=model.implicit_matvec_fm(), shift=1.0,
+                                          dtype=torch.float32)
+        step = model.implicit_stepper_fm(M_fm=pc.apply_fm, side="right")
+        G = model.pack_fm(model.initial_state()).reshape(-1)
+        step(G)  # warm-up
+        metrics, t = StepMetrics(), {}
+        with trace(f"{tmp}/trace") as logdir, timed(t, "traced"):
+            _, _, iters, resnorm, _ = step(G)
+        metrics.log(solve_s=t["traced"], iters=int(iters), resnorm=float(resnorm))
+        for k in range(2):
+            with timed(t, f"step {k}"):
+                _, _, iters, resnorm, _ = step(G)
+            metrics.log(solve_s=t[f"step {k}"], iters=int(iters), resnorm=float(resnorm))
+        traces = [f for f in os.listdir(logdir) if f.endswith(".json")]
+        text = open(os.path.join(logdir, traces[0])).read() if len(traces) == 1 else ""
+        print(f"[19d profiling] trace: {traces} ({len(text) / 1e6:.1f} MB), names K2's kernel "
+              f"k2_plane_stencil_kernel {text.count('k2_plane_stencil_kernel')} times; timed "
+              + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in t.items())
+              + f"; StepMetrics.summary() {metrics.summary()}; {smi}", flush=True)
+        check("k2_plane_stencil_kernel" in text, "the trace does not name K2's kernel")
+        del model, pc, step, G, m, res, text
+
+        # --- 19b: the FFT projection PC on a Kershaw-tet file -----------------
+        nt = 16
+        mt = kershaw_tet_mesh(cube, (nt,) * 3)
+        cells = np.asarray(mt.cell_vertices)
+        path = write_gmsh(f"{tmp}/kershawtet{nt}.msh", mt.points[cells.reshape(-1)],
+                          np.arange(cells.size).reshape(cells.shape))
+        t0 = time.perf_counter()
+        m = read_mesh(path)
+        t_read = time.perf_counter() - t0
+        pieces = count_nonconforming_pairs(m)
+        inv = np.argsort(m.cell_permutation)
+        d_ctr = np.abs(m.cell_center[inv] - mt.cell_center).max()
+        d_vol = np.abs(m.cell_volume[inv] - mt.cell_volume).max()
+        print(f"[19b mesh file] Kershaw-tet {nt}^3 Gmsh file ({mt.n_cells} tets, {cells.size} "
+              f"nodes, each cell's own): read_mesh {t_read:.2f} s; welded {m.welded_nodes} "
+              f"({len(m.points)} nodes), non-conforming pairs left {pieces}, topology_shape "
+              f"{getattr(m, 'topology_shape', None)}, bandwidth_ordered "
+              f"{getattr(m, 'bandwidth_ordered', False)}; with cell_permutation undone, "
+              f"max|d centre| {d_ctr:.1e}, max|d volume| {d_vol:.1e} (tol 1e-12)", flush=True)
+        check(m.welded_nodes and pieces == 0 and getattr(m, "topology_shape", None) is None
+              and getattr(m, "bandwidth_ordered", False) and max(d_ctr, d_vol) <= 1e-12,
+              "the Kershaw-tet file was not welded, RCM-ordered and equal to kershaw_tet_mesh")
+        model = WaveSystem(m, cfl=1e3 / 3, device=dev, dtype=torch.float32)
+        W = WindowedBlockOperator.from_bsr(model.divergence, dtype=torch.float32)
+        x = torch.randn(model.divergence.shape[0], device=dev, dtype=torch.float32)
+        y = model.divergence.matvec(x)
+        rel = (W.matvec(x) - y).abs().max().item() / y.abs().max().item()
+        print(f"[19b window SpMV] against the BSR matvec: max|dy|/max|y| {rel:.3e} (tol 1e-5)",
+              flush=True)
+        check(rel <= 1e-5, f"the window SpMV is off the BSR matvec: {rel:.3e}")
+        out = f"{tmp}/out19b"
+        reset_kernel_launches()
+        res = wave_implicit.main([path, "--pc", "circulant2l", "--ntmax", "2", "--vtk",
+                                  "--output-freq", "1"] + common[:-1] + [out])
+        launches[f"wave_implicit circulant2l from a Kershaw-tet file {nt}^3"] = kernel_launches()["K2"]
+        its = [d["extras"][0] for d in res.diagnostics]
+        conv = [d["extras"][2] for d in res.diagnostics]
+        m64 = WaveSystem(m, cfl=1e3 / 3, device=dev, dtype=torch.float64)
+        U = [m64.initial_state()]
+        for k in (1, 2):
+            _, Uk = read_vtk_cells(f"{out}/{os.path.basename(path)}_wave_{k:06d}.vtk")
+            U.append(torch.as_tensor(Uk.reshape(-1), device=dev))
+        res_true = [(torch.linalg.norm(U[k] + m64.divergence.matvec(U[k]) - U[k - 1])
+                     / torch.linalg.norm(U[k - 1])).item() for k in (1, 2)]
+        d_final = ((U[2] - res.state.double()).abs().max() / res.state.abs().max()).item()
+        print(f"[19b FFT projection PC] wave_implicit {os.path.basename(path)} --pc circulant2l "
+              f"(float32): iterations {its} (the JAX package, float32 on a CPU: 299 and 254), "
+              f"converged {conv}, ||(I+D)U_k - U_k-1||/||U_k-1|| {[f'{r:.3e}' for r in res_true]} "
+              f"(tol {TOL_RESIDUAL:g}, float64 assembled operator, states read back from the "
+              f"VTK files, max|dU|/max|U| to the final state {d_final:.1e}), ms/step "
+              f"{[round(t * 1e3, 1) for t in res.step_seconds]}; {smi}", flush=True)
+        check(len(its) == 2 and all(conv) and max(res_true) <= TOL_RESIDUAL and d_final <= 1e-6,
+              f"circulant2l from the file: iterations {its}, converged {conv}, residuals "
+              f"{res_true}")
+        del model, m64, W, x, y, U, res
+
+        # --- 19c: the VTK writer from the explicit driver ---------------------
+        mk = kershaw_mesh(cube, (nt,) * 3)
+        path = write_gmsh(f"{tmp}/kershaw{nt}.msh", mk.points, mk.cell_vertices)
+        out = f"{tmp}/out19c"
+        reset_kernel_launches()
+        res = wave_explicit.main([path, "--ntmax", "3", "--vtk", "--output-freq", "1"]
+                                 + common[:-1] + [out])
+        k2 = kernel_launches()["K2"]
+        launches[f"C wave_explicit from a Gmsh file {nt}^3"] = k2
+        files = sorted(os.listdir(out))
+        counts = [read_vtk_cells(f"{out}/{f}")[0] for f in files]
+        _, U3 = read_vtk_cells(f"{out}/{files[-1]}")
+        U_fin = res.state.double().cpu().numpy()
+        d_final = np.abs(U3.reshape(-1) - U_fin).max() / np.abs(U_fin).max()
+        print(f"[19c writers] wave_explicit {os.path.basename(path)} --vtk, 3 steps: files {files}, "
+              f"header counts {counts}, K2 launches {k2}, max|dU|/max|U| of the last file to the "
+              f"final state {d_final:.1e} (tol 1e-6)", flush=True)
+        check(len(files) == 3 and all(c == {"CELLS": mk.n_cells, "CELL_TYPES": mk.n_cells,
+                                            "CELL_DATA": mk.n_cells} for c in counts)
+              and k2 == 3 and d_final <= 1e-6, f"wave_explicit --vtk: files {files}, {counts}")
+    check("h5py" not in sys.modules, "phase 19 imported h5py")
+    print(f"[19] phase 19 took {time.perf_counter() - t_phase:.1f} s; K2 launches {launches}",
+          flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -1614,11 +1827,12 @@ def main() -> int:
           f"({(8 * N**3 + 72 * spec) / 1e6:.2f} MB, {k1_flops(fused.plan, False) / 1e9:.3f} "
           f"GFLOP); the library yardstick is the cuFFT solve above, three calls", flush=True)
 
-    k2, mesh64, mi = wave_phases(dev, smi)
+    k2, mesh64, mi, path_d = wave_phases(dev, smi)
     k3 = fft_pc_phases(dev, smi, mesh64, mi)
     k2["launches_by_path"].update(k3.pop("k2_launches_by_path"))
     slice6_phases(dev, smi)
     j_launches = path_j_phases(dev, smi)
+    k2["launches_by_path"].update(mesh_file_phases(dev, smi, mesh64, path_d))
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
 
     print(json.dumps({"kernels": [{

@@ -23,6 +23,13 @@ preconditioner), the algebraic aggregation V-cycle, CG and BiCGStab, and the
 diffusion equation (model, assembly, projection preconditioner, driver). No
 TPU kernel lies on these paths: they run in plain PyTorch on the card.
 
+Slice 7: the tetrahedral meshes and the supercell stencil path.
+
+Slice 8: mesh files in, results out: the Gmsh, MED and typ3 readers (node
+welding, non-conforming repair, grid-topology recovery, RCM renumbering),
+the VTK and MED writers and the profiling utilities (utils/profiling.py).
+MED files need h5py, which is imported only when one is read or written.
+
 This package imports torch, numpy and scipy, never jax; the JAX package is
 the reference it is tested against (tests/test_torch_*.py).
 """

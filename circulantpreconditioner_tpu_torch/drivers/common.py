@@ -1,13 +1,15 @@
 """Shared CLI plumbing for the port's driver executables (counterpart of
 circulantpreconditioner_tpu/drivers/common.py).
 
-Positional nx [ny [nz]] on the domain [-0.5, 0.5]^d, as the reference
-drivers, with `--mesh-family cartesian|hexa|tetra|kershaw|kershawtet` (all
-but cartesian are 3D: missing extents repeat the last one; tetra and
-kershawtet split each hex into 6 tets). `--device` picks the torch device
-(default "cuda", which raises when no GPU is present). Mesh files and the
-VTK/MED writers raise NotImplementedError naming their ROADMAP.md item;
-checkpoints are written.
+The reference drivers' positional `[mesh.med | nx [ny [nz]]]`: a mesh file
+(.med, .msh or .typ3, read by mesh.read_mesh: welding, non-conforming repair,
+grid-topology recovery or RCM order), or nx [ny [nz]] on the domain
+[-0.5, 0.5]^d with `--mesh-family cartesian|hexa|tetra|kershaw|kershawtet`
+(all but cartesian are 3D: missing extents repeat the last one; tetra and
+kershawtet split each hex into 6 tets). `--msh FILE` reads a Gmsh file and
+recovers its grid. `--device` picks the torch device (default "cuda", which
+raises when no GPU is present). Output: `--vtk` snapshots, a `--med` time
+series (needs h5py) and checkpoints, in --result-dir.
 """
 
 from __future__ import annotations
@@ -17,12 +19,17 @@ import os
 
 import torch
 
-from circulantpreconditioner_tpu_torch.io import save_checkpoint
-from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh
+import numpy as np
+
+from circulantpreconditioner_tpu_torch.io import save_checkpoint, write_med, write_vtk
+from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh, read_mesh
+from circulantpreconditioner_tpu_torch.mesh.med import import_h5py
+from circulantpreconditioner_tpu_torch.mesh.topology import recover_grid_topology
 from circulantpreconditioner_tpu_torch.mesh.unstructured import (
     hex_mesh,
     kershaw_mesh,
     kershaw_tet_mesh,
+    read_gmsh,
     tet_mesh,
 )
 from circulantpreconditioner_tpu_torch.utils.device import resolve_device
@@ -31,8 +38,8 @@ from circulantpreconditioner_tpu_torch.utils.device import resolve_device
 def base_parser(desc: str) -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=desc)
     p.add_argument("n", nargs="*",
-                   help="nx [ny [nz]] (cartesian [-0.5,0.5]^d) — same positional "
-                        "convention as the reference drivers")
+                   help="mesh.med|mesh.msh|mesh.typ3 file, or nx [ny [nz]] (cartesian "
+                        "[-0.5,0.5]^d) — same positional convention as the reference drivers")
     p.add_argument("--mesh-family", choices=["cartesian", "hexa", "tetra", "kershaw",
                                              "kershawtet"],
                    default="cartesian")
@@ -61,9 +68,12 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
 
 
 def build_mesh(args):
-    if args.msh or (args.n and not str(args.n[0]).lstrip("-").isdigit()):
-        raise NotImplementedError("mesh files (.msh/.med) are not ported yet: "
-                                  "see ROADMAP.md, queue 1, item 12a (mesh readers)")
+    if args.msh:
+        mesh = read_gmsh(args.msh)
+        recover_grid_topology(mesh)
+        return mesh
+    if args.n and not str(args.n[0]).lstrip("-").isdigit():
+        return read_mesh(args.n[0])
     n = [int(v) for v in args.n] or [50, 50]  # reference default 50x50 square
     if args.mesh_family == "cartesian":
         return cartesian_mesh(((-0.5, 0.5),) * len(n), n, periodic=args.periodic)
@@ -85,17 +95,34 @@ def setup_dtype(args) -> tuple[torch.device, torch.dtype]:
 
 
 def make_output_cb(args, mesh, split=None, prefix="field"):
-    """Per-output callback (it, t, U, extras) on the flat cell-major state U.
-    `split` (U → pressure, velocity) names the fields the VTK/MED writers
-    take; the writers are not ported yet (ROADMAP.md, slice 3, item 23b)."""
-    if args.vtk or args.med:
-        raise NotImplementedError("--vtk/--med writers are not ported yet: "
-                                  "see ROADMAP.md, slice 3, item 23b")
+    """Per-output callback (it, t, U, extras) on the flat cell-major state U
+    (host or device): VTK snapshots (--vtk), one MED time series (--med) and
+    checkpoints, in --result-dir. `split` (U → pressure, velocity) names the
+    fields the writers take; without it the state is one field, `prefix`.
+    Files are named by the mesh name's last path component (a mesh read
+    from a Gmsh file is named by its path)."""
+    if args.med:
+        import_h5py()  # raise before the run, not at its first output
     os.makedirs(args.result_dir, exist_ok=True)
+    stem = os.path.join(args.result_dir, os.path.basename(mesh.name))
+    med_path = f"{stem}_{prefix}.med"
+    wrote_med = [False]
 
     def cb(it, t, U, extras):
+        if args.vtk or args.med:
+            if split is not None:
+                p, v = split(U)
+                fields = {"pressure": p, "velocity": v}
+            else:
+                fields = {prefix: (U.detach().cpu().numpy() if isinstance(U, torch.Tensor)
+                                   else np.asarray(U)).reshape(-1)}
+            if args.vtk:
+                write_vtk(f"{stem}_{prefix}_{it:06d}.vtk", mesh, fields, time=t)
+            if args.med:
+                write_med(med_path, mesh, fields, time=t, it=it, append=wrote_med[0])
+                wrote_med[0] = True
         if args.checkpoint_freq and it % args.checkpoint_freq == 0:
-            save_checkpoint(os.path.join(args.result_dir, f"{mesh.name}_ckpt.npz"), U, t, it)
+            save_checkpoint(f"{stem}_ckpt.npz", U, t, it)
 
     return cb
 

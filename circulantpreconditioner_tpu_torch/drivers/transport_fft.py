@@ -32,6 +32,8 @@ def main(argv=None):
     device, dtype = setup_dtype(args)
     args.periodic = True  # the FFT direct solve is inherently periodic
     mesh = build_mesh(args)
+    if not mesh.is_structured:
+        raise SystemExit("transport_fft requires a cartesian mesh (use transport_implicit)")
     dim = mesh.dim
     velocity = [0.0] * dim
     velocity[0] = 1.0  # reference: vitesseTransport=(1,0,0)

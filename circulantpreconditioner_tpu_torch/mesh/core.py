@@ -1,9 +1,8 @@
 """Host-side mesh core: flat face/cell arrays for vectorized FV assembly.
 
 NumPy copy of circulantpreconditioner_tpu/mesh/core.py (same fields, same
-numbering), kept in the port so that it imports no JAX. `set_periodic` is
-ported; the other unstructured-mesh helpers (`validate`, …) come with the
-unstructured families (ROADMAP.md, queue 1, items 12a and 23b).
+numbering), kept in the port so that it imports no JAX, with
+`set_periodic` and `validate`.
 
 Replacement for the SOLVERLAB/CDMATH Mesh/Cell/Face object API the
 reference walks cell-by-cell (src/WaveSystem.cxx:109-176). Instead of an
@@ -129,3 +128,22 @@ class Mesh:
         lo = src.min(axis=0)
         hi = src.max(axis=0)
         return np.stack([lo, hi], axis=1)
+
+    def validate(self) -> None:
+        """Check the invariants: positive volumes and areas, unit normals,
+        and the divergence-theorem closure Σ_faces A·n = 0 of every cell.
+        Raises ValueError naming the first that fails."""
+        if not (self.cell_volume > 0).all():
+            raise ValueError("non-positive cell volume")
+        if not (self.face_area > 0).all():
+            raise ValueError("non-positive face area")
+        if not np.allclose(np.linalg.norm(self.face_normal, axis=1), 1.0, atol=1e-10):
+            raise ValueError("non-unit face normal")
+        closure = np.zeros((self.n_cells, self.dim))
+        np.add.at(closure, self.face_cells[:, 0], self.face_area[:, None] * self.face_normal)
+        inner = self.face_cells[:, 1]
+        m = inner >= 0
+        np.add.at(closure, inner[m], -self.face_area[m, None] * self.face_normal[m])
+        worst = np.abs(closure).max()
+        if worst >= 1e-9 * max(np.abs(self.face_area).max(), 1.0):
+            raise ValueError(f"cell closure violated: max {worst:.3e}")

@@ -13,8 +13,9 @@ The tetra families number their cells hex-major, 6 tetrahedra per hexahedron,
 so that `topology_shape` and `cells_per_site = 6` describe them as a grid of
 supercells (ops/stencil.py).
 
-The Gmsh/MED readers, `weld_points` and the 2D polygon meshes wait for
-ROADMAP.md, queue 1 (mesh readers and writers).
+Also `weld_points` (duplicate nodes merged, as the MED and Gmsh readers
+need), the 2D polygon meshes of the MED reader's 2D branch, and the Gmsh
+2.2 ASCII reader.
 """
 
 from __future__ import annotations
@@ -37,6 +38,45 @@ _HEX_FACES = [
 
 # 4 triangle faces of a tetrahedron (outward for positively oriented tets)
 _TET_FACES = [(1, 2, 3), (0, 3, 2), (0, 1, 3), (0, 2, 1)]
+
+
+def weld_points(points: np.ndarray, tol: float = 1e-9):
+    """Merge duplicate nodes (the MEDCoupling mergeNodes analog): (points,
+    remap) with remap[old_id] = new_id, or (points, None) when every node
+    is unique. Some files store each cell with its own copies of shared
+    vertices; faces are matched by vertex ids, so unwelded, their interior
+    faces would be taken for boundary. Nodes are keyed on round(p /
+    (tol·scale)); a cKDTree pass over the keys' representatives merges, by
+    union-find, two copies whose noise straddles a rounding bin. The same
+    np.unique and tolerance semantics as the JAX package, so the merged ids
+    (and the face numbering that follows them) are the JAX package's."""
+    pts = np.asarray(points, dtype=np.float64)
+    scale = float(np.abs(pts).max()) or 1.0
+    key = np.round(pts / (tol * scale)).astype(np.int64)
+    _, first_idx, inverse = np.unique(key, axis=0, return_index=True, return_inverse=True)
+    inverse = inverse.reshape(-1)
+    reps = pts[first_idx]
+    from scipy.spatial import cKDTree
+
+    pairs = cKDTree(reps).query_pairs(r=tol * scale, output_type="ndarray")
+    if len(first_idx) == len(pts) and pairs.size == 0:
+        return pts, None
+    parent = np.arange(len(reps))
+
+    def find(a):
+        while parent[a] != a:
+            parent[a] = parent[parent[a]]
+            a = parent[a]
+        return a
+
+    for a, b in pairs:
+        ra, rb = find(a), find(b)
+        if ra != rb:
+            parent[max(ra, rb)] = min(ra, rb)
+    roots = np.array([find(a) for a in range(len(reps))])
+    uniq, compact = np.unique(roots, return_inverse=True)
+    return reps[uniq], compact[inverse].astype(np.int64)
+
 
 # splitting of a hex into 6 tets (all positively oriented, shared diagonal 0-6)
 _HEX_TO_TETS = [
@@ -181,8 +221,9 @@ def build_mesh_from_cells(points: np.ndarray, cells, cell_faces=None,
                           default_group: str = "Wall", name: str = "unstructured") -> Mesh:
     """Face-major mesh from cells given by their vertex ids. With `cell_faces`
     None, cells are hexahedra (8 vertices, the _HEX_FACES numbering) or
-    tetrahedra (4 vertices, _TET_FACES); homogeneous meshes of either take
-    the vectorised path. Otherwise `cell_faces[c]` lists cell c's faces as
+    tetrahedra (4 vertices, _TET_FACES); homogeneous meshes of either (a
+    list of equal-length tuples or an (nC, 8 or 4) array) take the
+    vectorised path. Otherwise `cell_faces[c]` lists cell c's faces as
     tuples of its local vertex numbers (polyhedra, mixed meshes). Face areas
     and normals by fan triangulation, normals outward of the first incident
     cell, volumes by the divergence theorem: valid for the warped,
@@ -268,6 +309,79 @@ def _build_generic(points, cells, cell_faces, default_group, name) -> Mesh:
     mesh.points = points  # type: ignore[attr-defined]
     mesh.cell_vertices = cells  # type: ignore[attr-defined]
     mesh.face_vertices = f_vertices  # type: ignore[attr-defined]  # list of tuples
+    return mesh
+
+
+def build_mesh_from_cells_2d(points: np.ndarray, cells, default_group: str = "Wall",
+                             name: str = "unstructured2d") -> Mesh:
+    """2D mesh of polygon cells (TR3, QU4, ...) given by their ordered vertex
+    ids, whose faces are edges: the MED reader's 2D branch. Edge measure =
+    length, normal = in-plane unit outward of the first incident cell, cell
+    volume = shoelace area. The JAX package's loops, in its order."""
+    points = np.asarray(points, dtype=np.float64)[:, :2]
+    face_map: dict[tuple[int, int], int] = {}
+    f_vertices: list[tuple[int, int]] = []
+    f_cells: list[list[int]] = []
+    for ci, cv in enumerate(cells):
+        k = len(cv)
+        for a in range(k):
+            gv = (int(cv[a]), int(cv[(a + 1) % k]))
+            key = (min(gv), max(gv))
+            j = face_map.get(key)
+            if j is None:
+                face_map[key] = len(f_vertices)
+                f_vertices.append(gv)
+                f_cells.append([ci])
+            else:
+                f_cells[j].append(ci)
+
+    cell_centroid = np.array([points[list(cv)].mean(axis=0) for cv in cells])
+    cell_volume = np.array([
+        0.5 * abs(sum(
+            points[cv[a], 0] * points[cv[(a + 1) % len(cv)], 1]
+            - points[cv[(a + 1) % len(cv)], 0] * points[cv[a], 1]
+            for a in range(len(cv))))
+        for cv in cells])
+    nF = len(f_vertices)
+    face_cells = np.full((nF, 2), -1, dtype=np.int64)
+    face_normal = np.zeros((nF, 2))
+    face_area = np.zeros(nF)
+    face_center = np.zeros((nF, 2))
+    for f, (gv, cl) in enumerate(zip(f_vertices, f_cells)):
+        if len(cl) > 2:
+            raise ValueError(f"edge {f} shared by {len(cl)} cells — broken mesh")
+        p0, p1 = points[gv[0]], points[gv[1]]
+        t = p1 - p0
+        L = float(np.hypot(*t))
+        nrm = np.array([t[1], -t[0]]) / L
+        ctr = 0.5 * (p0 + p1)
+        if np.dot(nrm, ctr - cell_centroid[cl[0]]) < 0:
+            nrm = -nrm
+        face_cells[f, 0] = cl[0]
+        if len(cl) == 2:
+            face_cells[f, 1] = cl[1]
+        face_normal[f] = nrm
+        face_area[f] = L
+        face_center[f] = ctr
+
+    mesh = Mesh(
+        dim=2,
+        cell_center=cell_centroid,
+        cell_volume=cell_volume,
+        face_cells=face_cells,
+        face_normal=face_normal,
+        face_area=face_area,
+        face_center=face_center,
+        face_group=np.where(face_cells[:, 1] < 0, 1, INTERIOR).astype(np.int32),
+        groups={default_group: 1},
+        periodic_twin=None,
+        structured_shape=None,
+        bounds=None,
+        name=name,
+    )
+    mesh.points = points  # type: ignore[attr-defined]
+    mesh.cell_vertices = cells  # type: ignore[attr-defined]
+    mesh.face_vertices = f_vertices  # type: ignore[attr-defined]  # list of (a, b)
     return mesh
 
 
@@ -365,3 +479,54 @@ def kershaw_tet_mesh(bounds, n, eps: float = 0.3, name=None) -> Mesh:
     pts, hexes = _hex_grid_points_cells(bounds, n, warp=_kershaw_warp(bounds, eps))
     return _supercell_grid(build_mesh_from_cells(
         pts, _tets_of_hexes(hexes), name=name or f"kershawtet_{'x'.join(map(str, n))}"), n)
+
+
+def read_gmsh(path: str, name=None) -> Mesh:
+    """Gmsh MSH 2.2 ASCII reader: the nodes and the 3D elements (tetrahedra,
+    type 4; hexahedra, type 5), in file order; other elements (the 2D
+    boundary ones) are ignored. Node ids are renumbered in sorted order,
+    duplicate nodes welded (`welded_nodes` records whether any were). A
+    homogeneous file reaches the vectorised build as one (nC, 4 or 8)
+    array."""
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    node_ids = np.zeros(0, dtype=np.int64)
+    coords = np.zeros((0, 3))
+    conn: list[list[str]] = []
+    i = 0
+    while i < len(lines):
+        head = lines[i].strip()
+        if head == "$Nodes":
+            count = int(lines[i + 1])
+            rows = [ln.split()[:4] for ln in lines[i + 2:i + 2 + count]]
+            node_ids = np.array([int(r[0]) for r in rows], dtype=np.int64)
+            coords = np.array([[float(v) for v in r[1:]] for r in rows]).reshape(-1, 3)
+            i += 2 + count
+        elif head == "$Elements":
+            count = int(lines[i + 1])
+            for ln in lines[i + 2:i + 2 + count]:
+                parts = ln.split()
+                if int(parts[1]) in (4, 5):  # tet, hex
+                    conn.append(parts[3 + int(parts[2]):])
+            i += 2 + count
+        else:
+            i += 1
+    # sorted ids; a node listed twice keeps its last coordinates
+    ids, last = np.unique(node_ids[::-1], return_index=True)
+    points = coords[len(node_ids) - 1 - last]
+    points, weld = weld_points(points)  # per-cell duplicated vertices
+
+    def renumber(c):
+        c = np.asarray(c, dtype=np.int64)
+        pos = np.searchsorted(ids, c)
+        if (pos >= len(ids)).any() or (ids[np.minimum(pos, len(ids) - 1)] != c).any():
+            raise ValueError(f"{path}: an element references a node that is not listed")
+        return weld[pos] if weld is not None else pos
+
+    if conn and len({len(c) for c in conn}) == 1:
+        cells = renumber(np.array([[int(v) for v in c] for c in conn], dtype=np.int64))
+    else:
+        cells = [tuple(int(v) for v in renumber([int(v) for v in c])) for c in conn]
+    m = build_mesh_from_cells(points, cells, name=name or path)
+    m.welded_nodes = weld is not None  # type: ignore[attr-defined]
+    return m

@@ -49,10 +49,34 @@ def test_driver_checkpoint_output(tmp_path):
     assert it == res.iterations and np.array_equal(state, res.state.numpy())
 
 
-@pytest.mark.parametrize("extra", [["--med"], ["--vtk"], ["--shard", "slab"]])
+@pytest.mark.parametrize("extra", [["--shard", "slab"]])
 def test_unported_driver_options_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_fft.main(_args(tmp_path, ["4", "4", "4", "--device", "cpu"] + extra))
+
+
+@pytest.mark.parametrize("option", ["--med", "--vtk"])
+def test_driver_output_options_write_the_state(tmp_path, option):
+    """--med and --vtk (once raising, now ported): one output a step, the
+    last holding the final state, as the JAX driver writes it."""
+    import os
+
+    from circulantpreconditioner_tpu_torch.io import read_med_field
+
+    res = t_fft.main(_args(tmp_path, ["4", "4", "4", "--device", "cpu", option]))
+    rj = j_fft.main(_args(tmp_path / "jax", ["4", "4", "4", option]))
+    u = res.state.numpy()
+    if option == "--med":
+        series = read_med_field(str(tmp_path / "cartesian_4x4x4_temperature.med"), "temperature")
+        assert [it for it, _, _ in series] == [1, 2, 3]
+        assert np.array_equal(series[-1][2][:, 0], u)
+    else:
+        name = "cartesian_4x4x4_temperature_000003.vtk"
+        text = open(tmp_path / name).read()
+        assert text.split("LOOKUP_TABLE default\n")[1].split() == [str(v) for v in u]
+        assert sorted(f for f in os.listdir(tmp_path) if f.endswith(".vtk")) == sorted(
+            f for f in os.listdir(tmp_path / "jax") if f.endswith(".vtk"))
+        np.testing.assert_allclose(u, np.asarray(rj.state), rtol=0, atol=1e-10 * np.abs(u).max())
 
 
 def test_cuda_device_without_gpu_raises(tmp_path, monkeypatch):

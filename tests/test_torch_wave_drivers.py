@@ -9,7 +9,8 @@ test_torch_wave_model.py). The tet meshes (--mesh-family tetra|kershawtet)
 take the JAX drivers' routes: cell-major GMRES over the dense supercell
 stencil with the grid V-cycle's cell-major apply, and the field-major
 block-sparse supercell loop for the explicit driver. Also the CLI repairs:
---kershaw-eps, make_output_cb(split=...) and the mesh families."""
+--kershaw-eps, make_output_cb(split=...) and its writers, --msh and the mesh
+families."""
 
 import argparse
 
@@ -71,10 +72,28 @@ def test_shard_rows_raises_naming_its_item(tmp_path):
         t_imp.main(_args(tmp_path, CART + ["--shard", "rows", "--device", "cpu"]))
 
 
-@pytest.mark.parametrize("extra", [["--msh", "mesh.msh"], ["--shard", "slab"]])
+@pytest.mark.parametrize("extra", [["--shard", "slab"]])
 def test_wave_explicit_unported_options_raise(tmp_path, extra):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t_exp.main(_args(tmp_path, ["4", "4", "4", "--device", "cpu"] + extra))
+
+
+def test_wave_explicit_msh_option_matches_jax(tmp_path):
+    """--msh (once raising, now ported): a Kershaw 4³ Gmsh file, read and
+    its grid recovered, stepped as the JAX driver steps it."""
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
+    from test_torch_mesh_readers import write_gmsh
+
+    m = kershaw_mesh(((-0.5, 0.5),) * 3, (4, 4, 4))
+    path = write_gmsh(tmp_path / "k4.msh", m.points, m.cell_vertices, seed=4)
+    argv = _args(tmp_path, ["--msh", path], ntmax=5)
+    rt = t_exp.main(argv + ["--device", "cpu"])
+    _same(rt, j_exp.main(argv))
+    U_gen = t_exp.main(_args(tmp_path, KERSHAW[:2] + ["4", "4", "4", "--device", "cpu"],
+                             ntmax=5)).state
+    # the recovered grid is the generator's, its faces in the file's order
+    np.testing.assert_allclose(rt.state.numpy(), U_gen.numpy(), rtol=0,
+                               atol=1e-12 * np.abs(U_gen.numpy()).max())
 
 
 def test_kershaw_eps_option(tmp_path):
@@ -121,9 +140,21 @@ def test_make_output_cb_split_and_checkpoint(tmp_path):
     res = t_exp.main(_args(tmp_path, CART + ["--device", "cpu", "--checkpoint-freq", "1"]))
     state, t, it, _ = load_checkpoint(str(tmp_path / "cartesian_8x8_ckpt.npz"))
     assert it == res.iterations and np.array_equal(state, res.state.numpy())
-    args.vtk = True
-    with pytest.raises(NotImplementedError, match="item 23b"):
-        t_common.make_output_cb(args, mesh, split=lambda U: (U, U))
+    # the writers (item 23b, once raising): split's pressure and velocity
+    args.vtk = args.med = True
+    args.checkpoint_freq = 0
+    U = np.arange(mesh.n_cells * 3.0)
+    cb = t_common.make_output_cb(args, mesh, split=lambda U: (U[0::3], U.reshape(-1, 3)[:, 1:]),
+                                 prefix="wave")
+    cb(2, 0.75, U, [])
+    from circulantpreconditioner_tpu_torch.io import read_med_field
+
+    (it, t, p), = read_med_field(str(tmp_path / "cartesian_8x8_wave.med"), "pressure")
+    assert (it, t) == (2, 0.75) and np.array_equal(p[:, 0], U[0::3])
+    (_, _, v), = read_med_field(str(tmp_path / "cartesian_8x8_wave.med"), "velocity")
+    assert np.array_equal(v, U.reshape(-1, 3)[:, 1:])
+    text = open(tmp_path / "cartesian_8x8_wave_000002.vtk").read()
+    assert "SCALARS pressure double 1" in text and "VECTORS velocity double" in text
 
 
 def test_tet_implicit_gridmg_driver_matches_jax(tmp_path, capsys):
