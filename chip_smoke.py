@@ -132,8 +132,27 @@ Phases, one stdout line each (more for the drivers' own logs):
    3 steps: 3 files, each with the mesh's cell count in its headers. No MED
    file: the GPU host has no h5py, and the phase checks that h5py was not
    imported.
-Paths G to J launch none of K1, K2 and K3; their launch counts are printed
-(0 expected) and checked.
+20. the distributed layer (parallel/) on a world of one rank, opened as the
+   drivers open it (parallel.rank_world: NCCL on the card): (a) the slab and
+   pencil (1×1) solves at the 100³ flagship λ against the cuFFT solve (1e-5
+   relative) and bench.py's residual gate, and transport_fft --shard slab
+   and --shard pencil, 3 steps, against three one-device solves (1e-5);
+   (b) wave_explicit --shard slab and --shard rows at Kershaw 64³, 20 steps,
+   within 1e-5 of path C's state; gather_to_host0 of the slab state;
+   (c) wave_implicit --shard rows --pc pbjacobi and circulant2l at Kershaw
+   64³ in float32, 2 steps, their GMRES iterations beside one device's, and
+   the same at 16³ in float64, where the iterations must agree within one;
+   the distributed projection PC's apply at 32³ against the one-device PC's
+   (1e-4);
+   (d) wave_implicit --shard rows --pc circulant2l on phase 19b's welded
+   Kershaw-tet 16³ file, 2 steps: the halo window route, converged. Every
+   sharded operator's ms per apply (the distributed FFT and the all-matmul
+   slab block solve too) by CUDA events and CUDA-graph replay, beside its
+   one-device counterpart, with the NCCL records torch.profiler
+   shows per apply (one rank: no scaling figure); an all-reduce's cost per
+   call. The group is closed before the last line.
+Paths G to J and phase 20's sharded drivers launch none of K1, K2 and K3;
+their launch counts are printed (0 expected) and checked.
 
 Then one JSON line on the kernels (`ms`, `plain_ms` and `library_ms` are device
 time per call by CUDA-graph replay, `events_ms` the CUDA-event time of calls
@@ -614,7 +633,7 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
             "max_abs_err": k2_err, "ms": gms["K2"], "plain_ms": gms["K2 plain"],
             "events_ms": ms["K2"], "bound_ms": k2_bound, "bound_by": k2_by,
             "algorithm_bound_ms": k2_bound, "library_ms": lib_graph}, mesh, mi, {
-                "its": its, "k2": k2_i, "state": res_i.state}
+                "its": its, "k2": k2_i, "state": res_i.state, "state_c": U_e}
 
 
 def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
@@ -1596,6 +1615,277 @@ def mesh_file_phases(dev: torch.device, smi: str, mesh64, path_d) -> dict[str, i
     return launches
 
 
+def run_captured(main, argv) -> tuple:
+    """A driver's main(argv), its stdout echoed and returned: (result, text)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res = main(argv)
+    sys.stdout.write(buf.getvalue())
+    return res, buf.getvalue()
+
+
+def nccl_per_call(fn, calls: int = 20) -> dict[str, float]:
+    """The NCCL records and kernels torch.profiler shows per call of fn, by
+    name (the collectives' own records, nccl:*, and NCCL's kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count / calls for e in prof.key_averages() if "nccl" in e.key.lower()}
+
+
+def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state) -> dict[str, int]:
+    """Phase 20: the distributed layer (parallel/) on a world of one rank, the
+    card, through NCCL: the slab and pencil solves and the sharded drivers
+    at full size (20a to 20d), each sharded operator's time per apply beside
+    its one-device counterpart and the NCCL records of one apply. At one rank
+    every collective is issued and copies the rank's own data: the times are
+    the layer's cost on one card, not scaling figures. Returns K1 to K3's
+    launches on the sharded drivers (none expected)."""
+    import torch.distributed as dist
+
+    from circulantpreconditioner_tpu_torch.drivers import transport_fft, wave_explicit, wave_implicit
+    from circulantpreconditioner_tpu_torch.mesh import (
+        cartesian_mesh,
+        kershaw_mesh,
+        kershaw_tet_mesh,
+        read_mesh,
+    )
+    from circulantpreconditioner_tpu_torch.models import TransportEquation, WaveSystem
+    from circulantpreconditioner_tpu_torch.ops.assembly import wave_block_stencil
+    from circulantpreconditioner_tpu_torch.ops.circulant import CirculantTransportOperator
+    from circulantpreconditioner_tpu_torch.ops.dft_matmul import MatmulBlockCirculantSolver
+    from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
+    from circulantpreconditioner_tpu_torch.parallel import (
+        DistributedBlockCirculantPC,
+        HaloELLMatrix,
+        HaloWindowOperator,
+        PencilCirculantSolver,
+        ShardedELLMatrix,
+        SlabBlockCirculantSolver,
+        SlabCirculantSolver,
+        SlabStencilOperator,
+        device_mesh,
+        device_mesh_2d,
+        gather_to_host0,
+        rank_world,
+        sharded_pbjacobi,
+    )
+    from circulantpreconditioner_tpu_torch.parallel.fft_dist import make_distributed_fft3
+    from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+    from circulantpreconditioner_tpu_torch.solvers.circulant_pc import BlockCirculantProjectionPC
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(20)
+    f32 = dict(device=dev, dtype=torch.float32)
+    launched = {"K1": 0, "K2": 0, "K3": 0}
+
+    def sharded_run(main, argv):
+        reset_kernel_launches()
+        res, text = run_captured(main, argv)
+        for k, v in kernel_launches().items():
+            launched[k] += v
+        return res, text
+
+    def per_apply(label: str, sharded, single, single_label: str, collectives: bool = True):
+        ev = median_ms({"sharded": sharded, "single": single})
+        gr = {"sharded": graph_ms(sharded), "single": graph_ms(single)}
+        nccl = nccl_per_call(sharded)
+        print(f"[20 times] {label}: {ev['sharded']:.4f} ms/apply by CUDA events, "
+              f"{gr['sharded']:.4f} by CUDA-graph replay; {single_label} {ev['single']:.4f} "
+              f"and {gr['single']:.4f}; NCCL per apply {nccl}; {smi}", flush=True)
+        check(bool(nccl) == collectives, f"{label}: NCCL records per apply {nccl}")
+
+    with rank_world(None, dev), tempfile.TemporaryDirectory() as tmp:
+        dm = device_mesh()
+        check(dist.get_backend() == "nccl" and dm.shape == {"shard": 1}
+              and dm.device.type == "cuda", f"phase 20's world: {dist.get_backend()}, {dm.shape}")
+        common = ["--tmax", "1e9", "--device", "cuda", "--result-dir", f"{tmp}/out"]
+        # --- 20a: transport at N^3, the slab and pencil solves -------------
+        op = CirculantTransportOperator.create((N, N, N), flagship_lambdas(), **f32)
+        b = torch.as_tensor(rng.random((N, N, N)), **f32)
+        x_ref = op.solve(b)
+        solvers = {"slab": SlabCirculantSolver.from_operator(op, dm),
+                   "pencil 1x1": PencilCirculantSolver.from_operator(op, device_mesh_2d((1, 1)))}
+        for name, s in solvers.items():
+            x = s.unshard(s.solve(s.shard(b)))
+            rel = ((x - x_ref).abs().max() / x_ref.abs().max()).item()
+            res = rel_residual(op, x, b)
+            print(f"[20a {name}] {N}^3 flagship: max|x - x_cuFFT|/max|x_cuFFT| {rel:.3e} "
+                  f"(tol 1e-5), ||Cx - b||/||b|| {res:.3e} (tol {TOL_RESIDUAL:g})", flush=True)
+            check(rel <= 1e-5 and res <= TOL_RESIDUAL, f"the {name} solve: {rel:.3e}, {res:.3e}")
+        model = TransportEquation(cartesian_mesh(((-0.5, 0.5),) * 3, (N,) * 3, periodic=True),
+                                  [1.0, 0.0, 0.0], cfl=1e3 / 3, **f32)
+        u_ref = model.initial_state().reshape(op.shape_zyx)
+        for _ in range(3):  # the driver's three steps on one device
+            u_ref = model.fft_operator.solve(u_ref)
+        for shard in ("slab", "pencil"):
+            r, _ = sharded_run(transport_fft.main, [str(N)] * 3 + ["--shard", shard,
+                                                                   "--ntmax", "3"] + common)
+            u = r.state.reshape(-1)
+            rel = ((u - u_ref.reshape(-1)).abs().max() / u_ref.abs().max()).item()
+            print(f"[20a driver] transport_fft {N}^3 --shard {shard}: 3 steps, median "
+                  f"{np.median(r.step_seconds) * 1e3:.3f} ms/step, max|u - u_1dev|/max|u_1dev| "
+                  f"{rel:.3e} (tol 1e-5)", flush=True)
+            check(r.iterations == 3 and bool(torch.isfinite(u).all()) and rel <= 1e-5,
+                  f"transport_fft --shard {shard}: {r.iterations} steps, {rel:.3e}")
+        for name, s in solvers.items():
+            bs = s.shard(b)
+            per_apply(f"{name} solve {N}^3", lambda: s.solve(bs), lambda: op.solve(b),
+                      "cuFFT CirculantTransportOperator.solve")
+        v = torch.complex(b, torch.flip(b, dims=(0,)))
+        fft3 = make_distributed_fft3(dm)
+        vh = dm.all_gather(fft3(v), "shard")
+        rel = ((vh - torch.fft.fftn(v)).abs().max() / torch.fft.fftn(v).abs().max()).item()
+        check(rel <= 1e-5, f"make_distributed_fft3 is off torch.fft.fftn: {rel:.3e}")
+        per_apply(f"make_distributed_fft3 {N}^3 (against fftn: {rel:.1e})", lambda: fft3(v),
+                  lambda: torch.fft.fftn(v), "torch.fft.fftn (one device)")
+        del solvers, op, b, x_ref, model, u_ref, v, vh
+
+        # --- 20b: Kershaw NW^3 explicit, slab and rows ---------------------
+        kershaw = ["--mesh-family", "kershaw", str(NW), str(NW), str(NW)] + common
+        for shard in ("slab", "rows"):
+            r, text = sharded_run(wave_explicit.main, kershaw + ["--shard", shard, "--ntmax", "20"])
+            rel = ((r.state - path_c_state).abs().max() / path_c_state.abs().max()).item()
+            print(f"[20b driver] wave_explicit Kershaw {NW}^3 --shard {shard}: 20 steps, median "
+                  f"{np.median(r.step_seconds) * 1e3:.4f} ms/step, max|U - U_pathC|/max|U_pathC| "
+                  f"{rel:.3e} (tol 1e-5)", flush=True)
+            check(r.iterations == 20 and rel <= 1e-5, f"wave_explicit --shard {shard}: {rel:.3e}")
+        # --- 20c: Kershaw NW^3 implicit, --shard rows ----------------------
+        # float32 is the drivers' precision; its GMRES counts are printed
+        # beside one device's. The counts are held (± 1) in float64, at
+        # (NW/4)^3 to keep the phase short: in float32 two correct orders of
+        # summation part by many iterations (pbjacobi at Kershaw 8^3 on a
+        # CPU: 226 sharded, 219 on one device, 126 for both in float64)
+        for pc in ("pbjacobi", "circulant2l"):
+            for prec in ("float32", "float64"):
+                n = str(NW if prec == "float32" else NW // 4)
+                argv = (["--mesh-family", "kershaw", n, n, n] + common
+                        + ["--pc", pc, "--ntmax", "2"] + (["--f64"] if prec == "float64" else []))
+                r, text = sharded_run(wave_implicit.main, argv + ["--shard", "rows"])
+                r1 = wave_implicit.main(argv)
+                its = [d["extras"][0] for d in r.diagnostics]
+                its1 = [d["extras"][0] for d in r1.diagnostics]
+                conv = [d["extras"][2] for d in r.diagnostics]
+                rel = ((r.state - r1.state).abs().max() / r1.state.abs().max()).item()
+                print(f"[20c driver] wave_implicit Kershaw {n}^3 --shard rows --pc {pc} {prec}: "
+                      f"iterations {its} (one device: {its1}), converged {conv}, ms/step "
+                      f"{[round(t * 1e3, 1) for t in r.step_seconds]} (one device: "
+                      f"{[round(t * 1e3, 1) for t in r1.step_seconds]}), "
+                      f"max|U - U_1dev|/max|U_1dev| {rel:.3e}", flush=True)
+                check(len(its) == 2 and bool(torch.isfinite(r.state).all()),
+                      f"--shard rows --pc {pc} {prec}: iterations {its}, non-finite state")
+                if prec == "float64":
+                    check(all(abs(a - c) <= 1 for a, c in zip(its, its1)),
+                          f"--shard rows --pc {pc} float64: iterations {its} against {its1}")
+        # the sharded operators at NW^3 (one model: the time step does not
+        # change an apply's cost), the projection PC at (NW/2)^3, whose host
+        # build at NW^3 takes about 8 s per PC
+        mw = WaveSystem(mesh64, cfl=1e3 / 3, **f32)
+        D = mw.divergence
+        V = mw.varying_operator
+        U0 = mw.initial_state()
+        S = SlabStencilOperator(V, dm)
+        xs = S.shard_vector(U0)
+        full = gather_to_host0(xs)
+        check(full is not None and np.array_equal(full.reshape(-1), U0.cpu().numpy()),
+              "gather_to_host0 did not return the whole state on rank 0")
+        print(f"[20 gather_to_host0] rank 0 holds {full.shape}, equal to the state", flush=True)
+        per_apply(f"SlabStencilOperator Kershaw {NW}^3", lambda: S.matvec(xs),
+                  lambda: V.matvec(U0), "VaryingStencilOperator.matvec (one device)")
+        A = D.to_csr(torch.float32)
+        for cls in (HaloELLMatrix, ShardedELLMatrix):
+            Ar = cls(A, dm, row_multiple=4)
+            xr = Ar.shard_vector(U0)
+            per_apply(f"{cls.__name__} Kershaw {NW}^3", lambda: Ar.matvec(xr),
+                      lambda: D.matvec(U0), "BSRMatrix.matvec (one device)")
+        Dinv = np.linalg.inv(D.block_diagonal().cpu().numpy() + np.eye(4)[None, :, :])
+        pj_d = sharded_pbjacobi(Dinv, Ar.n_padded, dm)
+        pj_1 = pcs.pbjacobi(D, shift=1.0)
+        per_apply(f"sharded_pbjacobi Kershaw {NW}^3", lambda: pj_d(xr), lambda: pj_1(U0),
+                  "pbjacobi (one device)", collectives=False)
+        # the all-matmul block-circulant slab solve, the PC's coarse solve
+        offsets, blocks = wave_block_stencil(3, mw.dt, mw.c0, (1.0 / NW,) * 3)
+        sb = SlabBlockCirculantSolver.from_stencil((NW,) * 3, offsets, blocks, dm)
+        mb = MatmulBlockCirculantSolver.from_stencil((NW,) * 3, offsets, blocks, **f32,
+                                                     precision="high")
+        bs = sb.shard(U0)
+        x1 = mb.solve(U0)
+        rel = ((sb.unshard(sb.solve(bs)).reshape(-1) - x1).abs().max() / x1.abs().max()).item()
+        check(rel <= 1e-4, f"SlabBlockCirculantSolver is off MatmulBlockCirculantSolver: {rel:.3e}")
+        per_apply(f"SlabBlockCirculantSolver {NW}^3 (against the one-device form: {rel:.1e})",
+                  lambda: sb.solve(bs), lambda: mb.solve(U0),
+                  "MatmulBlockCirculantSolver.solve (one device)")
+        del mw, D, V, S, A, Ar, pj_d, pj_1, sb, mb, bs, x1
+        nh = NW // 2
+        m2 = kershaw_mesh(((-0.5, 0.5),) * 3, (nh,) * 3)
+        mi = WaveSystem(m2, cfl=1e3 / 3, **f32)
+        Ah = HaloELLMatrix(mi.divergence.to_csr(torch.float32), dm, row_multiple=4)
+        r0 = torch.as_tensor(rng.random(mi.divergence.shape[0]), **f32)
+        rs = Ah.shard_vector(r0)
+        t0 = time.perf_counter()
+        pc_d = DistributedBlockCirculantPC(m2, mi.dt, mi.c0, dm, Ah.n_padded, dtype=torch.float32)
+        t_d = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        pc_1 = BlockCirculantProjectionPC(m2, mi.dt, mi.c0, **f32)
+        t_1 = time.perf_counter() - t0
+        z_d, z_1 = Ah.unshard_vector(pc_d.apply(rs)), pc_1.apply(r0)
+        rel = ((z_d - z_1).abs().max() / z_1.abs().max()).item()
+        print(f"[20c projection PC] Kershaw {nh}^3: grid {pc_d.n_xyz}, halos {pc_d.halo_fwd} and "
+              f"{pc_d.halo_bak} rows; host build {t_d:.2f} s (one device: {t_1:.2f} s); one apply "
+              f"against the one-device PC's: max|dz|/max|z| {rel:.3e} (tol 1e-4)", flush=True)
+        check(rel <= 1e-4, f"the distributed PC apply is off the one-device apply: {rel:.3e}")
+        per_apply(f"DistributedBlockCirculantPC Kershaw {nh}^3", lambda: pc_d.apply(rs),
+                  lambda: pc_1.apply(r0), "BlockCirculantProjectionPC.apply (one device)")
+        # the sharded GMRES's reductions: three all-reduces per iteration
+        # (the two projections, of up to 31 numbers, and a norm)
+        h = torch.ones(31, **f32)
+        ev = median_ms({"all_reduce": lambda: dm.all_reduce(h), "clone": h.clone})
+        print(f"[20 times] RankMesh.all_reduce of 31 float32: {ev['all_reduce']:.4f} ms/call by "
+              f"CUDA events, {graph_ms(lambda: dm.all_reduce(h)):.4f} by CUDA-graph replay (its "
+              f"clone alone {ev['clone']:.4f}); NCCL per call {nccl_per_call(lambda: dm.all_reduce(h))}"
+              f"; {smi}", flush=True)
+        del mi, Ah, pc_d, pc_1
+
+        # --- 20d: the window route on phase 19b's welded Kershaw-tet file --
+        nt = 16
+        mt = kershaw_tet_mesh(((-0.5, 0.5),) * 3, (nt,) * 3)
+        cells = np.asarray(mt.cell_vertices)
+        path = write_gmsh(f"{tmp}/kershawtet{nt}.msh", mt.points[cells.reshape(-1)],
+                          np.arange(cells.size).reshape(cells.shape))
+        r, text = sharded_run(wave_implicit.main, [path, "--shard", "rows", "--pc", "circulant2l",
+                                                   "--ntmax", "2"] + common)
+        its = [d["extras"][0] for d in r.diagnostics]
+        conv = [d["extras"][2] for d in r.diagnostics]
+        print(f"[20d driver] wave_implicit kershawtet{nt}.msh --shard rows --pc circulant2l: "
+              f"route {'halo windowed' if 'halo windowed' in text else 'NOT the window'}, "
+              f"iterations {its} (one device: phase 19b's), converged {conv}, "
+              f"ms/step {[round(t * 1e3, 1) for t in r.step_seconds]}", flush=True)
+        check("halo windowed" in text and len(its) == 2 and all(conv),
+              f"the window route: iterations {its}, converged {conv}")
+        m = read_mesh(path)
+        W = WindowedBlockOperator.from_bsr(WaveSystem(m, cfl=1e3 / 3, **f32).divergence)
+        H = HaloWindowOperator(W, dm)
+        x1 = torch.as_tensor(rng.random(W.shape[1]), **f32)
+        xh = H.shard_vector(x1)
+        rel = ((H.unshard_vector(H.matvec(xh)) - W.matvec(x1)).abs().max()
+               / W.matvec(x1).abs().max()).item()
+        check(rel <= 1e-6, f"HaloWindowOperator is off WindowedBlockOperator: {rel:.3e}")
+        per_apply(f"HaloWindowOperator Kershaw-tet {nt}^3 (against W: {rel:.1e})",
+                  lambda: H.matvec(xh), lambda: W.matvec(x1), "WindowedBlockOperator.matvec")
+    check(not dist.is_initialized(), "phase 20 left its process group open")
+    print(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s; K1 to K3 launches on the "
+          f"sharded drivers {launched}", flush=True)
+    check(not any(launched.values()), f"a sharded driver launched a kernel: {launched}")
+    return launched
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -1833,7 +2123,9 @@ def main() -> int:
     slice6_phases(dev, smi)
     j_launches = path_j_phases(dev, smi)
     k2["launches_by_path"].update(mesh_file_phases(dev, smi, mesh64, path_d))
+    d_launches = distributed_phases(dev, smi, mesh64, path_d["state_c"])
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
+    d_path = "20 the sharded drivers (parallel/)"
 
     print(json.dumps({"kernels": [{
         "name": "fused_circulant_solve (K1)",
@@ -1842,7 +2134,7 @@ def main() -> int:
         "replaces": "circulantpreconditioner_tpu/ops/fused_circulant.py:117",
         "launches": launches,
         "launches_by_path": {"B GMRES + K1 preconditioner 100^3, 3 steps": launches,
-                             j_path: j_launches["K1"]},
+                             j_path: j_launches["K1"], d_path: d_launches["K1"]},
         "max_abs_err": max_abs_err,
         "ms": k1_graph["K1 (fused CUDA)"],
         "plain_ms": k1_graph["K1 plain (torch.matmul)"],
@@ -1857,13 +2149,15 @@ def main() -> int:
         "route": "cuda",
         "source": "circulantpreconditioner_tpu_torch/csrc/plane_stencil.cu",
         "replaces": "circulantpreconditioner_tpu/ops/pallas_stencil.py:69",
-        **k2, "launches_by_path": {**k2["launches_by_path"], j_path: j_launches["K2"]},
+        **k2, "launches_by_path": {**k2["launches_by_path"], j_path: j_launches["K2"],
+                                   d_path: d_launches["K2"]},
     }, {
         "name": "complex_matmul (K3)",
         "route": "cuda",
         "source": "circulantpreconditioner_tpu_torch/csrc/complex_matmul.cu",
         "replaces": "circulantpreconditioner_tpu/ops/pallas_kernels.py:33",
-        **k3, "launches_by_path": {**k3["launches_by_path"], j_path: j_launches["K3"]},
+        **k3, "launches_by_path": {**k3["launches_by_path"], j_path: j_launches["K3"],
+                                   d_path: d_launches["K3"]},
     }]}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(f"card: {smi}")

@@ -30,6 +30,11 @@ welding, non-conforming repair, grid-topology recovery, RCM renumbering),
 the VTK and MED writers and the profiling utilities (utils/profiling.py).
 MED files need h5py, which is imported only when one is read or written.
 
+Slice 9: the distributed layer on torch.distributed, one process per device
+(parallel/: the slab and pencil FFT solves, the halo, slab and window SpMVs,
+the distributed projection PC) and the drivers' --shard modes. This module
+does not import it, so importing the package opens no process group.
+
 This package imports torch, numpy and scipy, never jax; the JAX package is
 the reference it is tested against (tests/test_torch_*.py).
 """

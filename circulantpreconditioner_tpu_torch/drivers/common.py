@@ -10,6 +10,11 @@ kershawtet split each hex into 6 tets). `--msh FILE` reads a Gmsh file and
 recovers its grid. `--device` picks the torch device (default "cuda", which
 raises when no GPU is present). Output: `--vtk` snapshots, a `--med` time
 series (needs h5py) and checkpoints, in --result-dir.
+
+The drivers' `--shard` modes run one process per device (parallel/): under
+`torchrun --nproc-per-node P`, or as one rank without it. `--devices` is the
+rank count they expect, `--pq` the pencil mesh's shape. Every rank steps its
+own block; rank 0 alone prints and writes files.
 """
 
 from __future__ import annotations
@@ -64,6 +69,11 @@ def base_parser(desc: str) -> argparse.ArgumentParser:
     p.add_argument("--f64", action="store_true", help="float64")
     p.add_argument("--device", default="cuda",
                    help="torch device: cuda (default; raises without a GPU) or cpu")
+    p.add_argument("--devices", type=int, default=None,
+                   help="ranks of a --shard run, one process per device (default: the "
+                        "world's size; more than 1 needs torchrun --nproc-per-node P)")
+    p.add_argument("--pq", type=int, nargs=2, default=None,
+                   help="pencil rank-mesh shape (p q)")
     return p
 
 
@@ -131,3 +141,43 @@ def chunk_of(args) -> int:
     """Steps per host synchronisation: --chunk, default --output-freq."""
     c = args.chunk if args.chunk is not None else args.output_freq
     return max(int(c), 1)
+
+
+def rank0_print():
+    """print on rank 0 of a sharded run, None on the others (run_time_loop's
+    `log`)."""
+    import torch.distributed as dist
+
+    return print if dist.get_rank() == 0 else None
+
+
+def make_sharded_output_cb(args, mesh, unshard, device: torch.device, split=None,
+                           prefix="field"):
+    """make_output_cb for a sharded run: at each output every rank gathers the
+    state (`unshard` of its block, a collective) and rank 0 alone writes.
+    None when no output is asked for."""
+    import torch.distributed as dist
+
+    if not (args.vtk or args.med or args.checkpoint_freq):
+        return None
+    cb = make_output_cb(args, mesh, split=split, prefix=prefix) if dist.get_rank() == 0 else None
+
+    def on_output(it, t, U, extras):
+        full = unshard(torch.as_tensor(U, device=device))
+        if cb is not None:
+            cb(it, t, full.cpu().numpy(), extras)  # host arrays, as run_time_loop passes
+
+    return on_output
+
+
+def sharded_rows(D, dm, dtype):
+    """(row-sharded D, its description): the halo ELL rows where the band
+    fits a halo, else the all-gather ELL rows."""
+    from circulantpreconditioner_tpu_torch.parallel import HaloELLMatrix, ShardedELLMatrix
+
+    A = D.to_csr(dtype)
+    try:
+        As = HaloELLMatrix(A, dm, row_multiple=D.block_size)
+        return As, f"halo exchange (w={As.halo})"
+    except ValueError:
+        return ShardedELLMatrix(A, dm, row_multiple=D.block_size), "all-gather"

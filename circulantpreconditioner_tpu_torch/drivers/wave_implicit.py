@@ -26,9 +26,17 @@ meshes (--mesh-family tetra|kershawtet), whose field view groups the 6 cells
 of a site: there GMRES's matvec is the dense supercell stencil (M = 24) and
 gridmg's V-cycle runs cell-major, the JAX driver's route.
 
+`--shard rows` is the impl_mpi workload, one process per device: GMRES over
+row-sharded vectors (its norms and projections all-reduced over the ranks)
+with the halo ELL SpMV, or the halo window SpMV on RCM-ordered meshes, and
+--pc none, pbjacobi or circulant2l (the distributed projection PC,
+parallel/pc_dist.py).
+
     python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit 32 32 32
     python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit --mesh-family kershaw 64 64 64 --pc dct2lm
     python -m circulantpreconditioner_tpu_torch.drivers.wave_implicit --mesh-family kershawtet 16 16 16 --pc gridmg
+    torchrun --nproc-per-node 4 -m circulantpreconditioner_tpu_torch.drivers.wave_implicit \
+        --mesh-family kershaw 64 64 64 --shard rows --pc circulant2l
 """
 
 from __future__ import annotations
@@ -40,7 +48,10 @@ from circulantpreconditioner_tpu_torch.drivers.common import (
     build_mesh,
     chunk_of,
     make_output_cb,
+    make_sharded_output_cb,
+    rank0_print,
     setup_dtype,
+    sharded_rows,
 )
 from circulantpreconditioner_tpu_torch.models import WaveSystem, run_time_loop
 from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
@@ -60,11 +71,11 @@ def main(argv=None):
     p.add_argument("--atol", type=float, default=1e-5)
     p.add_argument("--maxits", type=int, default=1000)
     p.add_argument("--shard", choices=["none", "rows"], default="none",
-                   help="row-sharded GMRES (only 'none' is ported)")
+                   help="row-sharded SpMV and GMRES over the ranks (the impl_mpi "
+                        "analog; --pc none|pbjacobi|circulant2l)")
     args = p.parse_args(argv)
-    if args.shard != "none":
-        raise NotImplementedError(f"--shard {args.shard} needs the distributed SpMV, "
-                                  "not ported yet: see ROADMAP.md, slice 3, item 24")
+    if args.shard == "rows":
+        return _main_sharded(args)
     device, dtype = setup_dtype(args)
     mesh = build_mesh(args)
     model = WaveSystem(mesh, cfl=args.cfl or 1e3 / mesh.dim, device=device, dtype=dtype)
@@ -176,6 +187,90 @@ def _preconditioners(args, mesh, model, device, dtype):
         return None, M_fm, lambda: pcs.multiplicative(model.implicit_matvec(), coarse.apply,
                                                       make_pj())
     return coarse.apply, pj_fm, lambda: pcs.additive(coarse.apply, make_pj())
+
+
+def _sharded_operator(mesh, model, dm, dtype):
+    """(row-sharded D, its description): the halo window SpMV on an
+    RCM-ordered mesh where its unit halo fits, else the row-sharded ELL
+    (drivers/common.sharded_rows)."""
+    from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
+    from circulantpreconditioner_tpu_torch.parallel import HaloWindowOperator
+
+    D = model.divergence
+    if getattr(mesh, "bandwidth_ordered", False):
+        try:
+            As = HaloWindowOperator(WindowedBlockOperator.from_bsr(D, dtype=dtype), dm)
+            return As, f"halo windowed (wu={As.halo_units} units)"
+        except ValueError:
+            pass
+    return sharded_rows(D, dm, dtype)
+
+
+def _main_sharded(args):
+    """Row-sharded implicit wave solve, one rank per device: the
+    WaveSystem_..._impl_mpi.cxx analog (GMRES + BJACOBI distributed, :32-34,
+    :139-189), with the distributed circulant projection PC the reference
+    was building toward (ToDo.md:1). res.state is the gathered flat
+    cell-major state; the iterations of each step are in res.diagnostics."""
+    from circulantpreconditioner_tpu_torch.parallel import (
+        DistributedBlockCirculantPC,
+        device_mesh,
+        rank_world,
+        sharded_pbjacobi,
+    )
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+
+    if args.pc not in ("none", "pbjacobi", "circulant2l"):
+        raise SystemExit("--shard rows supports --pc none|pbjacobi|circulant2l")
+    mesh = build_mesh(args)
+    with rank_world(args.devices, args.device):
+        log = rank0_print()
+        say = log or (lambda *a, **k: None)
+        device, dtype = setup_dtype(args)
+        model = WaveSystem(mesh, cfl=args.cfl or 1e3 / mesh.dim, device=device, dtype=dtype)
+        say(f"-- implicit wave: mesh {mesh.name} ({mesh.n_cells} cells), "
+            f"dt={model.dt:.4g}, pc={args.pc}")
+        dm = device_mesh(args.devices)
+        D = model.divergence
+        b = D.block_size
+        As, kind = _sharded_operator(mesh, model, dm, dtype)
+        say(f"-- row-sharded over {dm.shape} devices: {kind} SpMV "
+            f"(n={As.n}, padded {As.n_padded})")
+        M = None
+        side = "left"
+        if args.pc != "none":
+            Dinv = np.linalg.inv(D.block_diagonal().cpu().numpy() + np.eye(b)[None, :, :])
+            M = sharded_pbjacobi(Dinv, As.n_padded, dm, dtype=dtype)
+        if args.pc == "circulant2l":
+            coarse = DistributedBlockCirculantPC(mesh, model.dt, model.c0, dm, As.n_padded,
+                                                 dtype=dtype)
+            M = pcs.additive(coarse.apply, M)
+            side = "right"
+            say(f"-- distributed circulant PC grid {coarse.n_xyz}")
+        solver = make_gmres(lambda v: v + As.matvec(v), M, rtol=args.rtol, atol=args.atol,
+                            maxiter=args.maxits, side=side, allreduce=dm.all_reduce)
+
+        def step(u):
+            res = solver(u, u)
+            # this rank's part of ‖ΔU‖₂; run_time_loop reduces it over the ranks
+            return res.x, (res.x - u).norm(), res.iters, res.resnorm, res.converged
+
+        res = run_time_loop(
+            step, As.shard_vector(model.initial_state()), model.dt, tmax=args.tmax,
+            ntmax=args.ntmax, precision=args.precision, output_freq=args.output_freq,
+            chunk=chunk_of(args), log=log, global_norms=dm.global_norms,
+            on_output=make_sharded_output_cb(args, mesh, As.unshard_vector, dm.device,
+                                             split=model.split_fields, prefix="wave"),
+        )
+        res.state = As.unshard_vector(res.state)
+        pfin, _ = model.split_fields(res.state)
+        its = [d["extras"][0] for d in res.diagnostics if d["extras"]]
+        say(f"\nEnd at it={res.iterations} t={res.time:.6g} stationary={res.stationary}")
+        say(f"pressure range [{pfin.min():.6g}, {pfin.max():.6g}]")
+        if its:
+            say(f"GMRES iterations per step: median {np.median(its):.0f}, "
+                f"max {np.max(its):.0f}")
+    return res
 
 
 if __name__ == "__main__":

@@ -4,7 +4,10 @@ counterpart of circulantpreconditioner_tpu/models/runner.py).
 Step until it ≥ ntmax, t > tmax, or stationarity ‖ΔU‖₂ < precision; log and
 call `on_output` every output_freq steps. With chunk > 1 the steps of a chunk
 are queued back to back and the host synchronises once per chunk (the JAX
-package runs the chunk as one lax.scan).
+package runs the chunk as one lax.scan). On a row-sharded state (parallel/)
+each rank's step returns the norm of its own block of ΔU, and
+`global_norms` makes the global ‖ΔU‖₂ of them, once per step or chunk, so
+that every rank stops at the same step.
 """
 
 from __future__ import annotations
@@ -45,6 +48,7 @@ def run_time_loop(
     on_output: Callable | None = None,  # (it, t, U_host, extras) -> None
     log: Callable | None = print,
     chunk: int | None = None,
+    global_norms: Callable | None = None,  # local dnorms (tensor) -> global ones
 ) -> TimeLoopResult:
     """chunk > 1 runs that many steps per host synchronisation. Per-step
     dnorms still come back for the stationarity test; if it trips mid-chunk
@@ -53,7 +57,8 @@ def run_time_loop(
     if chunk is not None and chunk > 1:
         return _run_time_loop_chunked(step, U0, dt, tmax=tmax, ntmax=ntmax,
                                       precision=precision, chunk=chunk,
-                                      on_output=on_output, log=log)
+                                      on_output=on_output, log=log,
+                                      global_norms=global_norms)
     U = U0
     t = 0.0
     it = 0
@@ -62,6 +67,8 @@ def run_time_loop(
     while it < ntmax and t <= tmax and not stationary:
         t0 = time.perf_counter()
         U_new, dnorm, *extras = step(U)
+        if global_norms is not None:
+            dnorm = global_norms(torch.as_tensor(dnorm).reshape(1))[0]
         synchronize(U_new.device)
         dt_wall = time.perf_counter() - t0
         U = U_new
@@ -91,7 +98,8 @@ def run_time_loop(
     return result
 
 
-def _run_time_loop_chunked(step, U0, dt, *, tmax, ntmax, precision, chunk, on_output, log):
+def _run_time_loop_chunked(step, U0, dt, *, tmax, ntmax, precision, chunk, on_output, log,
+                           global_norms=None):
     U = U0
     t = 0.0
     it = 0
@@ -105,7 +113,10 @@ def _run_time_loop_chunked(step, U0, dt, *, tmax, ntmax, precision, chunk, on_ou
             U, dnorm, *ex = step(U)
             dnorms.append(torch.as_tensor(dnorm).reshape(()))
             extras = ex
-        dnorms = torch.stack(dnorms).cpu().numpy()  # the chunk's one synchronisation
+        dnorms = torch.stack(dnorms)
+        if global_norms is not None:
+            dnorms = global_norms(dnorms)
+        dnorms = dnorms.cpu().numpy()  # the chunk's one synchronisation
         dt_wall = time.perf_counter() - t0
         it += n
         t += n * dt

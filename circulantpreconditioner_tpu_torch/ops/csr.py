@@ -1,8 +1,8 @@
 """CSR and block-CSR sparse matrices with gather + segment-sum SpMV (PyTorch
 counterparts of CSRMatrix and BSRMatrix in circulantpreconditioner_tpu/ops/
-csr.py). Assembly stays on the host in NumPy; duplicate COO entries are
-summed (ADD_VALUES semantics). ELL is not ported yet (ROADMAP.md, slice 2,
-item 12)."""
+csr.py), and the padded-ELL form the distributed SpMVs shard
+(parallel/spmv_dist.py). Assembly stays on the host in NumPy; duplicate COO
+entries are summed (ADD_VALUES semantics)."""
 
 from __future__ import annotations
 
@@ -88,6 +88,37 @@ class CSRMatrix:
         vals = torch.where(self.row_ids == self.indices, self.data, 0.0)
         y = torch.zeros(self.shape[0], dtype=self.data.dtype, device=self.data.device)
         return y.index_add_(0, self.row_ids, vals)
+
+    def to_ell(self) -> "ELLMatrix":
+        """Padded-ELL form, built on the host: row r's stored entries in CSR
+        order, then zero-valued padding with column 0 up to the longest row."""
+        indptr = self.indptr.cpu().numpy()
+        n = self.shape[0]
+        deg = np.diff(indptr)
+        k = int(deg.max()) if n else 0
+        rows = self.row_ids.cpu().numpy()
+        pos = np.arange(len(rows)) - indptr[rows]  # place of each entry in its row
+        cols = np.zeros((n, k), dtype=np.int64)
+        vals = np.zeros((n, k), dtype=np.float64)
+        cols[rows, pos] = self.indices.cpu().numpy()
+        vals[rows, pos] = self.data.cpu().double().numpy()
+        dev = self.data.device
+        return ELLMatrix(torch.as_tensor(cols, device=dev),
+                         torch.as_tensor(vals).to(device=dev, dtype=self.data.dtype),
+                         self.shape)
+
+
+class ELLMatrix:
+    """Padded ELLPACK: (n_rows, k) column and value tables, zero-padded, so
+    that y[r] = Σ_k vals[r, k] · x[cols[r, k]] is one regular gather."""
+
+    def __init__(self, cols: torch.Tensor, vals: torch.Tensor, shape: tuple[int, int]):
+        self.cols = cols  # (n_rows, k) int64, padded with 0
+        self.vals = vals  # (n_rows, k), padded with 0.0
+        self.shape = (int(shape[0]), int(shape[1]))
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        return (self.vals * x[self.cols]).sum(dim=1)
 
 
 def _sum_blocks(idx: np.ndarray, blocks: np.ndarray, n_out: int) -> np.ndarray:

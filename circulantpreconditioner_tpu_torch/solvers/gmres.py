@@ -17,6 +17,12 @@ the stopping tests run in NumPy in the vectors' dtype. Only the "flat" basis
 is ported: the JAX solver's "lane" layout folds vectors onto the TPU's
 128-lane axis. The projections use the active rows V[:j+1] only; the JAX
 solver's rows beyond j are zero, so the results agree.
+
+On row-sharded vectors (parallel/), each rank holds its block of b, x and
+the basis, and `allreduce` sums a tensor over the ranks: the norms and the
+CGS2 projections are then the global ones (the JAX package's psums under
+shard_map), and every rank takes the same Givens updates and stopping
+decisions. None (the default) is the one-device solver.
 """
 
 from __future__ import annotations
@@ -56,8 +62,10 @@ def make_gmres(
     maxiter: int = 1000,
     divtol: float = 1e4,
     side: str = "left",
+    allreduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> Callable[..., KrylovResult]:
-    """GMRES for a fixed operator/preconditioner pair: solve(b, x0=None)."""
+    """GMRES for a fixed operator/preconditioner pair: solve(b, x0=None).
+    allreduce: sums a tensor over the ranks of a row-sharded solve."""
     if M is None:
         M = _identity
     if side not in ("left", "right"):
@@ -66,18 +74,25 @@ def make_gmres(
 
     def solve(b: torch.Tensor, x0: torch.Tensor | None = None) -> KrylovResult:
         return _gmres_body(A, M, b, x0, m=int(restart), rtol=rtol, atol=atol,
-                           maxiter=maxiter, divtol=divtol, right=right)
+                           maxiter=maxiter, divtol=divtol, right=right, allreduce=allreduce)
 
     return solve
 
 
-def _gmres_body(A, M, b, x0, *, m, rtol, atol, maxiter, divtol, right) -> KrylovResult:
+def _gmres_body(A, M, b, x0, *, m, rtol, atol, maxiter, divtol, right,
+                allreduce=None) -> KrylovResult:
     n = b.shape[0]
     dtype = b.dtype
     npdt = np.float64 if dtype == torch.float64 else np.float32
     eps = npdt(np.finfo(npdt).tiny)
     x = torch.zeros_like(b) if x0 is None else x0
-    norm = lambda v: npdt(torch.linalg.norm(v).item())
+    if allreduce is None:
+        vnorm = torch.linalg.norm
+        project = lambda Vj, w: Vj @ w  # noqa: E731
+    else:
+        vnorm = lambda v: torch.sqrt(allreduce(torch.dot(v, v).reshape(1)))[0]  # noqa: E731
+        project = lambda Vj, w: allreduce(Vj @ w)  # noqa: E731
+    norm = lambda v: npdt(vnorm(v).item())
 
     b_pre = b if right else M(b)
     bnorm = norm(b_pre)
@@ -100,11 +115,11 @@ def _gmres_body(A, M, b, x0, *, m, rtol, atol, maxiter, divtol, right) -> Krylov
         while j < m and res >= tol and res <= dtol and total_it + j < maxiter:
             w = precond_op(V[j])
             Vj = V[: j + 1]
-            h = Vj @ w  # classical Gram-Schmidt, twice
+            h = project(Vj, w)  # classical Gram-Schmidt, twice
             w = w - _combine(h, Vj)
-            h2 = Vj @ w
+            h2 = project(Vj, w)
             w = w - _combine(h2, Vj)
-            wnorm = torch.linalg.norm(w)
+            wnorm = vnorm(w)
             V[j + 1] = w / torch.clamp(wnorm, min=float(eps))
             hw = torch.cat([h + h2, wnorm.reshape(1)]).cpu().numpy().astype(npdt)
             hfull = np.zeros(m + 1, dtype=npdt)
@@ -150,7 +165,8 @@ def _gmres_body(A, M, b, x0, *, m, rtol, atol, maxiter, divtol, right) -> Krylov
 
 
 def gmres(A, b, x0=None, *, M=None, restart: int = 30, rtol: float = 1e-5,
-          atol: float = 1e-5, maxiter: int = 1000, side: str = "left") -> KrylovResult:
+          atol: float = 1e-5, maxiter: int = 1000, side: str = "left",
+          allreduce=None) -> KrylovResult:
     """One-shot convenience wrapper around make_gmres."""
     return make_gmres(A, M, restart=restart, rtol=rtol, atol=atol, maxiter=maxiter,
-                      side=side)(b, x0)
+                      side=side, allreduce=allreduce)(b, x0)

@@ -1,0 +1,149 @@
+"""The distributed layer (circulantpreconditioner_tpu_torch/parallel/) over P
+GPUs of one host, one process per GPU, through NCCL:
+
+    torchrun --nproc-per-node P dist_scaling.py
+
+Each rank builds the same models from a seed and keeps its blocks. Rank 0
+prints, for this P: the slab and pencil circulant solves at 128³ (checked
+against the one-device cuFFT solve on every rank, 1e-5 relative), the halo
+ELL, all-gather ELL and slab-stencil SpMVs of the Kershaw 64³ wave operator
+and the distributed projection PC's apply (each checked against its
+one-device counterpart, 1e-5 and 1e-4), each in ms per apply by CUDA events
+over chains of applies begun together on every rank; then
+`wave_implicit --shard rows --pc circulant2l` at Kershaw 64³ for 2 steps:
+GMRES iterations and ms per step. The last line is one JSON object of these
+figures with the card's name and power limit. Run it at P = 1 and at P = 4
+on the same host to compare them. Exits non-zero when a check fails.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+N, NW, CALLS, REPEATS = 128, 64, 20, 7
+
+
+def chain_ms(fn) -> float:
+    """ms per call: the median of REPEATS chains of CALLS calls, each begun
+    after a barrier, timed by CUDA events on this rank."""
+    for _ in range(3):
+        fn()
+    times = []
+    for _ in range(REPEATS):
+        dist.barrier()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(CALLS):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / CALLS)
+    return float(np.median(times))
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise SystemExit(f"dist_scaling: {what}")
+
+
+def main() -> int:
+    from circulantpreconditioner_tpu_torch.drivers import wave_implicit
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+    from circulantpreconditioner_tpu_torch.ops.circulant import CirculantTransportOperator
+    from circulantpreconditioner_tpu_torch.parallel import (
+        DistributedBlockCirculantPC,
+        HaloELLMatrix,
+        PencilCirculantSolver,
+        ShardedELLMatrix,
+        SlabCirculantSolver,
+        SlabStencilOperator,
+        device_mesh,
+        device_mesh_2d,
+        rank_world,
+    )
+    from circulantpreconditioner_tpu_torch.solvers.circulant_pc import BlockCirculantProjectionPC
+
+    out = {}
+    with rank_world(None, "cuda"):
+        P = dist.get_world_size()
+        rank0 = dist.get_rank() == 0
+        say = print if rank0 else (lambda *a, **k: None)
+        dm = device_mesh()
+        dev = dm.device
+        f32 = dict(device=dev, dtype=torch.float32)
+        rng = np.random.default_rng(0)
+        out["P"] = P
+
+        # the circulant solves at N^3 (the flagship λ: cfl 1e3/3, a = (1,0,0))
+        h = 1.0 / N
+        op = CirculantTransportOperator.create((N, N, N), (0.0, 0.0, (1e3 / 3) * (h / 6) / h),
+                                               **f32)
+        b = torch.as_tensor(rng.random((N, N, N)), **f32)
+        x_ref = op.solve(b)
+        pq = (max(P // 2, 1), 2 if P >= 2 else 1)
+        for name, s in (("slab", SlabCirculantSolver.from_operator(op, dm)),
+                        (f"pencil {pq[0]}x{pq[1]}",
+                         PencilCirculantSolver.from_operator(op, device_mesh_2d(pq)))):
+            bs = s.shard(b)
+            rel = ((s.unshard(s.solve(bs)) - x_ref).abs().max() / x_ref.abs().max()).item()
+            check(rel <= 1e-5, f"{name} solve off cuFFT: {rel:.3e}")
+            out[f"{name} solve {N}^3 ms"] = chain_ms(lambda: s.solve(bs))
+            say(f"[P={P}] {name} solve {N}^3: {out[f'{name} solve {N}^3 ms']:.4f} ms/apply, "
+                f"max|x - x_cuFFT|/max|x_cuFFT| {rel:.2e}", flush=True)
+        out[f"one-device cuFFT solve {N}^3 ms"] = chain_ms(lambda: op.solve(b))
+        del op, b, x_ref
+
+        # the Kershaw NW^3 wave operator, its SpMVs and the projection PC
+        mesh = kershaw_mesh(((-0.5, 0.5),) * 3, (NW,) * 3)
+        model = WaveSystem(mesh, cfl=1e3 / 3, **f32)
+        D = model.divergence
+        x = torch.as_tensor(rng.random(D.shape[0]), **f32)
+        y_ref = D.matvec(x)
+        A = D.to_csr(torch.float32)
+        for name, S in (("HaloELLMatrix", HaloELLMatrix(A, dm, row_multiple=4)),
+                        ("ShardedELLMatrix", ShardedELLMatrix(A, dm, row_multiple=4)),
+                        ("SlabStencilOperator", SlabStencilOperator(model.varying_operator, dm))):
+            xs = S.shard_vector(x)
+            y = S.unshard_vector(S.matvec(xs)).reshape(-1)
+            rel = ((y - y_ref).abs().max() / y_ref.abs().max()).item()
+            check(rel <= 1e-5, f"{name} off the BSR matvec: {rel:.3e}")
+            out[f"{name} {NW}^3 ms"] = chain_ms(lambda: S.matvec(xs))
+            say(f"[P={P}] {name} {NW}^3: {out[f'{name} {NW}^3 ms']:.4f} ms/apply, "
+                f"max|dy|/max|y| {rel:.2e}", flush=True)
+        out[f"one-device BSR matvec {NW}^3 ms"] = chain_ms(lambda: D.matvec(x))
+        Ah = HaloELLMatrix(A, dm, row_multiple=4)
+        pc = DistributedBlockCirculantPC(mesh, model.dt, model.c0, dm, Ah.n_padded,
+                                         dtype=torch.float32)
+        rs = Ah.shard_vector(x)
+        z_ref = BlockCirculantProjectionPC(mesh, model.dt, model.c0, **f32).apply(x)
+        rel = ((Ah.unshard_vector(pc.apply(rs)) - z_ref).abs().max() / z_ref.abs().max()).item()
+        check(rel <= 1e-4, f"the distributed PC off the one-device PC: {rel:.3e}")
+        out[f"DistributedBlockCirculantPC {NW}^3 ms"] = chain_ms(lambda: pc.apply(rs))
+        say(f"[P={P}] DistributedBlockCirculantPC {NW}^3 (grid {pc.n_xyz}, halos {pc.halo_fwd}, "
+            f"{pc.halo_bak} rows): {out[f'DistributedBlockCirculantPC {NW}^3 ms']:.4f} ms/apply, "
+            f"max|dz|/max|z| {rel:.2e}", flush=True)
+        del model, D, A, Ah, pc, x, y_ref, z_ref
+
+        res = wave_implicit.main(["--mesh-family", "kershaw", str(NW), str(NW), str(NW),
+                                  "--shard", "rows", "--pc", "circulant2l", "--ntmax", "2",
+                                  "--tmax", "1e9"])
+        out["circulant2l iterations"] = [d["extras"][0] for d in res.diagnostics]
+        out["circulant2l ms/step"] = [t * 1e3 for t in res.step_seconds]
+        check(all(d["extras"][2] for d in res.diagnostics), "circulant2l did not converge")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    if rank0:
+        out["cards"] = smi
+        print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

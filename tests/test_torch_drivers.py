@@ -49,9 +49,16 @@ def test_driver_checkpoint_output(tmp_path):
     assert it == res.iterations and np.array_equal(state, res.state.numpy())
 
 
-@pytest.mark.parametrize("extra", [["--shard", "slab"]])
+@pytest.mark.parametrize("extra", [["--shard", "slab", "--devices", "2"],
+                                   ["--shard", "pencil", "--pq", "3", "1"]])
 def test_unported_driver_options_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What still raises, now that --shard runs (tests/test_torch_parallel_drivers.py):
+    --devices 2 with no process group and no torchrun environment, and a
+    --pq whose pencil mesh does not tile the grid (checked before any rank
+    starts)."""
+    exc, match = {"slab": (RuntimeError, "torchrun --nproc-per-node 2"),
+                  "pencil": (ValueError, "need nz%p==0")}[extra[1]]
+    with pytest.raises(exc, match=match):
         t_fft.main(_args(tmp_path, ["4", "4", "4", "--device", "cpu"] + extra))
 
 

@@ -3,7 +3,8 @@ plain versions, one GMRES step preconditioned through K1, one grid-V-cycle
 GMRES step on the wave system through K2, the staged DFT solve through K3,
 one dct2lm GMRES step through K2, and the paths with no hand-written kernel
 (ILU(0) and block-Jacobi ILU(0), diffusion, the aggregation V-cycle, the
-supercell SpMV and V-cycle of the tet meshes) on the card against the CPU.
+supercell SpMV and V-cycle of the tet meshes) on the card against the CPU,
+and the distributed layer's slab solve on a world of one rank over NCCL.
 They skip without a GPU.
 
 This file imports no JAX, so it also runs on a machine that has only the
@@ -423,3 +424,30 @@ def test_supercell_vcycle_on_card(cuda):
     (z, res), (z64, ref) = out
     assert np.abs(z - z64).max() <= 1e-4 * np.abs(z64).max()
     assert res.converged and ref.converged and abs(res.iters - ref.iters) <= 1
+
+
+@pytest.mark.gpu
+def test_sharded_solves_on_card_through_nccl(cuda):
+    """The distributed layer on a world of one rank over NCCL, opened as the
+    drivers open it: the slab solve equals the one-device solve, and asking
+    for more ranks than the host has GPUs raises (no two ranks share one)."""
+    import torch.distributed as dist
+
+    from circulantpreconditioner_tpu_torch.parallel import (
+        SlabCirculantSolver,
+        device_mesh,
+        rank_world,
+    )
+
+    with pytest.raises(RuntimeError, match="GPU"):
+        with rank_world(torch.cuda.device_count() + 1, "cuda"):
+            pass
+    with rank_world(None, "cuda"):
+        assert dist.get_backend() == "nccl"
+        op = CirculantTransportOperator.create((16, 8, 12), (0.3, 0.8, 2.0), device=cuda,
+                                               dtype=torch.float64)
+        slab = SlabCirculantSolver.from_operator(op, device_mesh())
+        b = torch.as_tensor(np.random.default_rng(1).random((16, 8, 12)), device=cuda)
+        x = slab.unshard(slab.solve(slab.shard(b)))
+        assert (x - op.solve(b)).abs().max().item() <= 1e-12 * op.solve(b).abs().max().item()
+    assert not dist.is_initialized()

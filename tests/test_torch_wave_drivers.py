@@ -68,14 +68,30 @@ def test_default_pc_is_ilu0_and_matches_jax(tmp_path, capsys):
 
 
 def test_shard_rows_raises_naming_its_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 24"):
+    """--shard rows runs (tests/test_torch_parallel_drivers.py) with --pc
+    none, pbjacobi and circulant2l; any other --pc, ilu0 the default among
+    them, exits naming those three, as the JAX driver does. The pencil
+    decomposition is transport_fft's alone: --shard pencil is refused."""
+    with pytest.raises(SystemExit, match=r"supports --pc none\|pbjacobi\|circulant2l"):
         t_imp.main(_args(tmp_path, CART + ["--shard", "rows", "--device", "cpu"]))
+    with pytest.raises(SystemExit):
+        t_imp.main(_args(tmp_path, CART + ["--shard", "pencil", "--pq", "3", "1",
+                                          "--device", "cpu"]))
 
 
-@pytest.mark.parametrize("extra", [["--shard", "slab"]])
+@pytest.mark.parametrize("extra", [["--shard", "slab"], ["--shard", "pencil", "--pq", "3", "1"]])
 def test_wave_explicit_unported_options_raise(tmp_path, extra):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t_exp.main(_args(tmp_path, ["4", "4", "4", "--device", "cpu"] + extra))
+    """What still raises: --shard slab on a mesh with no grid topology (an
+    RCM-ordered tet file), as in the JAX driver, and --shard pencil, which
+    only transport_fft has."""
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_tet_mesh
+    from test_torch_mesh_readers import write_gmsh
+
+    mt = kershaw_tet_mesh(((-0.5, 0.5),) * 3, (2, 2, 2))
+    path = write_gmsh(tmp_path / "kt2.msh", mt.points, mt.cell_vertices)
+    match = "topologically structured" if extra[1] == "slab" else None
+    with pytest.raises(SystemExit, match=match):
+        t_exp.main(_args(tmp_path, [path, "--device", "cpu"] + extra))
 
 
 def test_wave_explicit_msh_option_matches_jax(tmp_path):
