@@ -151,8 +151,27 @@ Phases, one stdout line each (more for the drivers' own logs):
    one-device counterpart, with the NCCL records torch.profiler
    shows per apply (one rank: no scaling figure); an all-reduce's cost per
    call. The group is closed before the last line.
+21. the device-resident solves: for paths B, D, F, G, H, I and J as the
+   phases above ran them (no new run), the iterations per step, the wall of
+   a warm step, the first step's wall and the seconds of its warm-ups and
+   captures, the device time per step and busy share (torch.profiler), the
+   graph replays and host waits per iteration, the masked iterations and
+   their kernel launches, beside the host loops' figures from before the
+   capture (copied from PERF.md, not measured by this script). Every one of them must have run
+   its solves as graph replays. (Phase 5 also runs 2 path-B steps captured
+   against 2 uncaptured (utils.graphs.CAPTURE false): equal iterations,
+   states within 1e-6; phase 10 the same for path D, and one captured
+   path-D solve under torch.cuda.set_sync_debug_mode("error"), which raises
+   on any synchronising call; phases 5 and 10 time paths B and D at
+   lookahead 0 too; phase 18 prints the device memory with the solver's
+   graphs and after it released them.)
 Paths G to J and phase 20's sharded drivers launch none of K1, K2 and K3;
-their launch counts are printed (0 expected) and checked.
+their launch counts are printed (0 expected) and checked. K1, K2 and K3
+count their launches per graph replay (utils/graphs.py). The iterations a
+solve queued past its stop (utils.graphs.STATS.masked) run masked and
+launch their kernels all the same: the counts hold them, each check adds
+the masked iterations' launches (per iteration, as a kept one) to what the
+kept iterations need, and the masked launches are printed apart.
 
 Then one JSON line on the kernels (`ms`, `plain_ms` and `library_ms` are device
 time per call by CUDA-graph replay, `events_ms` the CUDA-event time of calls
@@ -160,7 +179,8 @@ enqueued one by one, K1's `pass_ms` its passes one by one, K3's `stages` its
 numbers at the 128³ and 100³ stage shapes (the top-level ones are the 128³
 stage's); `bound_ms` is the least time of the function each kernel computes,
 by its cheapest known algorithm, and `algorithm_bound_ms` that of the kernel's
-own algorithm), and as the last line
+own algorithm; `masked_launches` is the part of `launches` made by iterations
+queued past a stop), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero without that line.
 """
@@ -368,17 +388,44 @@ def k1_flops(plan, row_pairs: bool) -> float:
             + 6.0 * nz * ny * nxr)
 
 
-def k2_expected_launches(its: list[int], pc_fine_applies: int, restart: int = 30) -> int:
+def k2_expected_launches(its: list[int], pc_fine_applies: int, restart: int = 30,
+                         masked: int = 0) -> int:
     """K2 launches of the field-major GMRES steps that took `its` iterations:
     per solve one initial residual, one residual per restart cycle and one
     matvec per iteration, plus `pc_fine_applies` fine-level applies (the
     V(1,1) cycle's two residuals) per preconditioner apply, which come once
-    per iteration and once per cycle (right preconditioning)."""
-    total = 0
+    per iteration and once per cycle (right preconditioning); and a matvec
+    and a preconditioner apply for each of the `masked` iterations queued
+    past a stop."""
+    total = masked * (1 + pc_fine_applies)
     for i in its:
         cycles = -(-i // restart)
         total += 1 + cycles + i + pc_fine_applies * (i + cycles)
     return total
+
+
+def k1_expected_launches(its: list[int], masked: int, restart: int = 30) -> int:
+    """K1 launches of right-preconditioned GMRES steps with K1 as M: one M
+    per iteration, masked ones included, and one per cycle (the correction)."""
+    return masked + sum(i + -(-i // restart) for i in its)
+
+
+def uncaptured_steps(make_solver, U0, steps: int = 2):
+    """`steps` solves U ← solve(U, U) from U0 by a solver made and run with
+    capture off (utils.graphs.CAPTURE false: every step function eager);
+    returns the last U and the iterations per step."""
+    from circulantpreconditioner_tpu_torch.utils import graphs
+
+    graphs.CAPTURE = False
+    try:
+        solver, U, its = make_solver(), U0, []
+        for _ in range(steps):
+            r = solver(U, U)
+            U = r.x
+            its.append(r.iters)
+    finally:
+        graphs.CAPTURE = True
+    return U, its
 
 
 def wave_phases(dev: torch.device, smi: str) -> dict:
@@ -499,23 +546,26 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
         # --- 9: main path D, the implicit wave driver with the grid V-cycle -
         PlaneStencilMatvec.launches = FusedCirculantSolver.launches = 0
         t0 = time.perf_counter()
-        res_i = wave_implicit.main(common + ["--ntmax", "2", "--pc", "gridmg"])
-        torch.cuda.synchronize()
+        res_i, snap = solve_run(lambda: wave_implicit.main(common + ["--ntmax", "2", "--pc",
+                                                                     "gridmg"]))
         wall_i = time.perf_counter() - t0
         k2_i = PlaneStencilMatvec.launches
         its = [d["extras"][0] for d in res_i.diagnostics]
         conv = [d["extras"][2] for d in res_i.diagnostics]
-        expected = k2_expected_launches(its, pc_fine_applies=2)
+        expected = k2_expected_launches(its, pc_fine_applies=2, masked=snap["masked"])
         print(f"[9 main path D] wave_implicit Kershaw {NW}^3 --pc gridmg: iterations {its}, "
               f"converged {conv}, K2 launches {k2_i} (GMRES matvecs "
               f"{k2_expected_launches(its, 0)} + V-cycle fine level "
-              f"{expected - k2_expected_launches(its, 0)}), ms/step "
+              f"{k2_expected_launches(its, 2) - k2_expected_launches(its, 0)} + the "
+              f"{snap['masked']} masked iterations' {snap['masked_launches'][1]}), ms/step "
               f"{[round(s * 1e3, 3) for s in res_i.step_seconds]}, driver wall {wall_i:.2f} s",
               flush=True)
         check(len(its) == 2 and all(conv), f"wave_implicit gridmg: iterations {its}, "
               f"converged {conv}")
         check(k2_i == expected, f"wave_implicit gridmg: {k2_i} K2 launches, expected "
-              f"{expected} from the iterations {its}")
+              f"{expected} from the iterations {its} and {snap['masked']} masked")
+        record_loop("D", snap, its=its, first_ms=res_i.step_seconds[0] * 1e3,
+                    capture_s=snap["capture_seconds"])
         check(bool(torch.isfinite(res_i.state).all()), "wave_implicit: non-finite state")
         solver = make_gmres(A_plain, pc_plain.apply_fm, side="right")
         G = mi.pack_fm(mi.initial_state()).reshape(-1)
@@ -532,16 +582,17 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
         check(dev_i <= 1e-4, f"wave_implicit disagrees with the plain operator: {dev_i:.3e}")
 
         PlaneStencilMatvec.launches = FusedCirculantSolver.launches = 0
-        res_p = wave_implicit.main(common[:2] + ["16", "16", "16"] + common[5:]
-                                   + ["--ntmax", "2", "--pc", "pbjacobi"])
+        res_p, snap_p = solve_run(lambda: wave_implicit.main(
+            common[:2] + ["16", "16", "16"] + common[5:] + ["--ntmax", "2", "--pc", "pbjacobi"]))
         k2_p = PlaneStencilMatvec.launches
         its_p = [d["extras"][0] for d in res_p.diagnostics]
         conv_p = [d["extras"][2] for d in res_p.diagnostics]
         print(f"[9 driver] wave_implicit Kershaw 16^3 --pc pbjacobi: iterations {its_p}, "
-              f"converged {conv_p}, K2 launches {k2_p}", flush=True)
+              f"converged {conv_p}, K2 launches {k2_p} ({snap_p['masked_launches'][1]} of them "
+              f"by {snap_p['masked']} masked iterations)", flush=True)
         check(len(its_p) == 2 and all(conv_p) and bool(torch.isfinite(res_p.state).all()),
               f"wave_implicit pbjacobi: iterations {its_p}, converged {conv_p}")
-        check(k2_p == k2_expected_launches(its_p, 0),
+        check(k2_p == k2_expected_launches(its_p, 0, masked=snap_p["masked"]),
               f"wave_implicit pbjacobi: {k2_p} K2 launches for iterations {its_p}")
 
     # --- 10: times at NW^3 -------------------------------------------------
@@ -593,10 +644,41 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
         busy = sum(prof.values())
         wall = float(np.median(walls))
         top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
+        if name == "implicit gridmg":
+            record_loop("D", warm_ms=wall, device_ms=busy, busy=100 * busy / wall)
         print(f"[10 busy] {name} step at {NW}^3: wall {wall:.3f} ms (median of {reps}), "
               f"device {busy:.3f} ms/step (profiled over {reps} steps), busy "
               f"{100 * busy / wall:.1f} %; largest: "
               + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top), flush=True)
+    # path D's step: the captured solve with every synchronising call an error
+    # (set_sync_debug_mode), then 2 steps captured against 2 uncaptured
+    step_d, G0_d, _ = steps["implicit gridmg"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        G_d, _, its_d, _, conv_d = step_d(G0_d)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(conv_d, "path D's step under set_sync_debug_mode('error') did not converge")
+    G_c, its_c = G0_d, []
+    for _ in range(2):
+        G_c, _, it_c, _, _ = step_d(G_c)
+        its_c.append(it_c)
+    G_e, its_e = uncaptured_steps(
+        lambda: make_gmres(mi.implicit_matvec_fm(), pc_k2.apply_fm, side="right"), G0_d)
+    rel = ((G_c - G_e).abs().max() / G_e.abs().max()).item()
+    print(f"[10 device loop] path D: one captured solve under "
+          f"torch.cuda.set_sync_debug_mode('error'): {its_d} iterations, no synchronising call; "
+          f"2 steps captured against uncaptured: iterations {its_c} and {its_e}, "
+          f"max|dG|/max|G| {rel:.3e} (tol 1e-6)", flush=True)
+    check(its_c == its_e and rel <= 1e-6, f"path D captured {its_c} against uncaptured "
+          f"{its_e}, states {rel:.3e} apart")
+    d0 = make_gmres(mi.implicit_matvec_fm(), pc_k2.apply_fm, side="right")
+    d0._lookahead = 0
+    l0 = warm_profile(lambda G: d0(G, G), G0_d, reps=2)
+    record_loop("D", lookahead0=l0)
+    print(f"[10 device loop] path D at lookahead 0: wall {l0['warm_ms']:.3f} ms, device "
+          f"{l0['device_ms']:.3f} ms, busy {l0['busy']:.1f} % (lookahead 1 above)", flush=True)
     print(f"[10 times]   explicit step (wave_explicit, 20 steps): median "
           f"{np.median(res_e.step_seconds) * 1e3:.4f} ms; implicit step (wave_implicit "
           f"--pc gridmg, 2 steps): median {np.median(res_i.step_seconds) * 1e3:.3f} ms",
@@ -626,7 +708,7 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
           f"({k2_by})", flush=True)
     # "launches" counts the two main paths at NW^3; each count was reset
     # before its own driver run and checked after it
-    return {"launches": k2_e + k2_i,
+    return {"launches": k2_e + k2_i, "masked_launches": snap["masked_launches"][1],
             "launches_by_path": {f"C wave_explicit {NW}^3": k2_e,
                                  f"D wave_implicit gridmg {NW}^3": k2_i,
                                  "wave_implicit pbjacobi 16^3": k2_p},
@@ -798,22 +880,25 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
         kershaw = ["--mesh-family", "kershaw"]
         PlaneStencilMatvec.launches = 0
         t0 = time.perf_counter()
-        res_f = wave_implicit.main(kershaw + [str(NW)] * 3 + common
-                                   + ["--ntmax", "2", "--pc", "dct2lm"])
-        torch.cuda.synchronize()
+        res_f, snap = solve_run(lambda: wave_implicit.main(kershaw + [str(NW)] * 3 + common
+                                                           + ["--ntmax", "2", "--pc", "dct2lm"]))
         wall_f = time.perf_counter() - t0
         k2_f = PlaneStencilMatvec.launches
         its = [d["extras"][0] for d in res_f.diagnostics]
         conv = [d["extras"][2] for d in res_f.diagnostics]
-        expected = k2_expected_launches(its, pc_fine_applies=1)
+        expected = k2_expected_launches(its, pc_fine_applies=1, masked=snap["masked"])
         print(f"[13 main path F] wave_implicit Kershaw {NW}^3 --pc dct2lm: iterations {its} "
               f"(the JAX package's record on its TPU: {JAX_RECORDS['dct2lm 64^3']}), converged "
               f"{conv}, K2 launches {k2_f} (expected {expected}: a matvec per iteration and "
-              f"per restart, one more in every multiplicative apply), ms/step "
+              f"per restart, one more in every multiplicative apply; "
+              f"{snap['masked_launches'][1]} of them by {snap['masked']} masked iterations), "
+              f"ms/step "
               f"{[round(t * 1e3, 3) for t in res_f.step_seconds]}, driver wall {wall_f:.2f} s",
               flush=True)
         check(len(its) == 2 and all(conv), f"dct2lm: iterations {its}, converged {conv}")
         check(k2_f == expected, f"dct2lm: {k2_f} K2 launches, expected {expected}")
+        record_loop("F", snap, its=its, first_ms=res_f.step_seconds[0] * 1e3,
+                    capture_s=snap["capture_seconds"])
         check(bool(torch.isfinite(res_f.state).all()), "dct2lm: non-finite state")
         Wi = mi.normal_operator
         A_plain = functools.partial(_identity_plus, Wi.matvec_fm_flat)
@@ -836,16 +921,19 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
 
         for pc in ("circulant2l", "dct2l"):
             PlaneStencilMatvec.launches = 0
-            res = wave_implicit.main(kershaw + ["16"] * 3 + common + ["--ntmax", "2", "--pc", pc])
+            res, snap_pc = solve_run(lambda pc=pc: wave_implicit.main(
+                kershaw + ["16"] * 3 + common + ["--ntmax", "2", "--pc", pc]))
             its_pc = [d["extras"][0] for d in res.diagnostics]
             conv_pc = [d["extras"][2] for d in res.diagnostics]
             k2_pc = PlaneStencilMatvec.launches
             print(f"[13 driver] wave_implicit Kershaw 16^3 --pc {pc}: iterations {its_pc} (the "
                   f"JAX package's record on its TPU: {JAX_RECORDS[pc + ' 16^3']}), converged "
-                  f"{conv_pc}, K2 launches {k2_pc}", flush=True)
+                  f"{conv_pc}, K2 launches {k2_pc} ({snap_pc['masked_launches'][1]} of them by "
+                  f"{snap_pc['masked']} masked iterations)", flush=True)
             check(len(its_pc) == 2 and all(conv_pc) and bool(torch.isfinite(res.state).all()),
                   f"{pc}: iterations {its_pc}, converged {conv_pc}")
-            check(k2_pc == k2_expected_launches(its_pc, 0), f"{pc}: {k2_pc} K2 launches")
+            check(k2_pc == k2_expected_launches(its_pc, 0, masked=snap_pc["masked"]),
+                  f"{pc}: {k2_pc} K2 launches")
             k2_by_path[f"wave_implicit {pc} 16^3"] = k2_pc
 
         for pc, extra in (("dctfft", []), ("blockfft", ["--periodic"])):
@@ -952,6 +1040,7 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
     prof = device_profile(lambda: step(G0), calls=2)
     busy, wall = sum(prof.values()), float(np.median(walls))
     top = sorted(prof.items(), key=lambda kv: -kv[1])[:5]
+    record_loop("F", warm_ms=wall, device_ms=busy, busy=100 * busy / wall)
     print(f"[14 busy] dct2lm step at {NW}^3 (first step): wall {wall:.3f} ms (median of 3), "
           f"device {busy:.3f} ms/step, busy {100 * busy / wall:.1f} %; largest: "
           + "; ".join(f"{k[:48]} {v:.3f} ms" for k, v in top) + f"; {smi}", flush=True)
@@ -999,7 +1088,7 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
         print(f"[14 times] projection PC coarse solve, {label}, float32 (forms agree to "
               f"{rel:.1e}): " + "; ".join(f"{n} {ms[n]:.4f} ms by events, {gms[n]:.4f} by graph "
                                           f"replay" for n in runs) + f"; {smi}", flush=True)
-    return {"launches": k3_steps, "launches_by_path": k3_by_path, "max_abs_err": k3_err,
+    return {"launches": k3_steps, "masked_launches": 0, "launches_by_path": k3_by_path, "max_abs_err": k3_err,
             **k3_json, "k2_launches_by_path": k2_by_path}
 
 
@@ -1033,6 +1122,79 @@ def step_walls(step, U0, reps: int = 3) -> list[float]:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t0) * 1e3)
     return walls
+
+
+# phase 21: the device-resident solves, recorded by the phases that run each path
+DEVICE_LOOP: dict[str, dict] = {}
+# the host loops' figures, before the solves were captured: copied from PERF.md
+# (§5 and §6, NVIDIA H100 80GB HBM3, 700.00 W), not measured by this script
+HOST_LOOP_FIGURES = {
+    "B": "wall 1.162 ms, device 0.223 ms, busy 19.2 %, iterations <= 3",
+    "D": "wall 828.5 ms, device 79.1 ms, busy 9.5 %, iterations 38 and 28",
+    "F": "wall 166.5 ms, device 134.2 ms, busy 80.6 %, iterations 95 and 48",
+    "G": "wall 1,706 to 2,140 ms, device not measured, iterations 100 (unconverged)",
+    "H": "wall 3.366 ms, device not measured, iterations 3",
+    "I": "wall 855 to 1,131 ms, device not measured, iterations 109 and 71",
+    "J": "warm first step 903.4 ms (1,453.3 ms on a slower host), device 244.3 ms, "
+         "busy 27 %, iterations 41 and 27",
+}
+
+
+def solve_run(fn):
+    """fn() with the solvers' counters (utils.graphs.STATS) reset before it;
+    returns (fn's result, the counters after it)."""
+    from circulantpreconditioner_tpu_torch.utils.graphs import STATS
+
+    STATS.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, STATS.snapshot()
+
+
+def record_loop(path: str, snap: dict | None = None, **fields) -> None:
+    """Phase 21's figures of `path`: `fields`, and the per-iteration rates of
+    a STATS snapshot over its counted steps."""
+    rec = DEVICE_LOOP.setdefault(path, {})
+    rec.update(fields)
+    if snap is not None:
+        its = max(snap["iterations"], 1)
+        rec.update(replays_per_it=snap["replays"] / its, waits_per_it=snap["waits"] / its,
+                   masked=snap["masked"], masked_launches=snap["masked_launches"],
+                   eager_calls=snap["eager_calls"],
+                   captures=snap["captures"])
+
+
+def warm_profile(step, U0, reps: int = 2) -> dict:
+    """Wall (median of `reps`, after a warm-up step) and device time per step
+    (torch.profiler over `reps` more) of `step` from U0."""
+    walls = step_walls(step, U0, reps)
+    prof = device_profile(lambda: step(U0), calls=reps)
+    wall, device = float(np.median(walls)), sum(prof.values())
+    return {"warm_ms": wall, "device_ms": device, "busy": 100 * device / wall}
+
+
+def device_loop_phase(smi: str) -> None:
+    """Phase 21: the device-resident solves of paths B, D, F, G, H, I and J,
+    as the earlier phases ran them, beside the host loops' figures from
+    before the capture (copied from PERF.md)."""
+    print(f"[21 device-resident solves] every Krylov solve of the one-device paths as CUDA-graph "
+          f"replays, the stopping tests on the device, flags read one iteration behind; "
+          f"{smi}", flush=True)
+    for path in "BDFGHIJ":
+        r = DEVICE_LOOP[path]
+        print(f"[21 {path}] iterations per step {r['its']}; wall per warm step "
+              f"{r['warm_ms']:.3f} ms; first step {r['first_ms']:.1f} ms; eager warm-ups and "
+              f"captures {r['capture_s']:.3f} s over the counted run ({r['captures']} graphs); device "
+              f"{r['device_ms']:.3f} ms per step, busy {r['busy']:.1f} % (torch.profiler); graph "
+              f"replays per iteration {r['replays_per_it']:.2f}, host waits per iteration "
+              f"{r['waits_per_it']:.2f}, masked iterations {r['masked']} (their K1, K2, K3 "
+              f"launches {r['masked_launches']}), eager step functions {r['eager_calls']}"
+              + (f"; at lookahead 0: wall {r['lookahead0']['warm_ms']:.3f} ms, device "
+                 f"{r['lookahead0']['device_ms']:.3f} ms" if "lookahead0" in r else "")
+              + f" | the host loop before capture, copied from PERF.md (not measured by this run): "
+              f"{HOST_LOOP_FIGURES[path]}", flush=True)
+        check(r["replays_per_it"] > 0 and r["captures"] > 0,
+              f"path {path}'s solves ran no graph: {r}")
 
 
 def slice6_phases(dev: torch.device, smi: str) -> None:
@@ -1097,9 +1259,11 @@ def slice6_phases(dev: torch.device, smi: str) -> None:
         step = wm.implicit_stepper(M=M, maxiter=100)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        U1, _, its, resnorm, conv = step(U0)
-        torch.cuda.synchronize()
+        (U1, _, its, resnorm, conv), snap = solve_run(lambda: step(U0))
         wall = time.perf_counter() - t0
+        if label == "ILU(0)":
+            record_loop("G", snap, its=[its], first_ms=wall * 1e3,
+                        capture_s=snap["capture_seconds"], **warm_profile(step, U0, reps=1))
         true_res = (torch.linalg.norm(A(U1) - U0) / torch.linalg.norm(U0)).item()
         print(f"[15 main path G] GMRES + {label}, cartesian {ng}^3, maxiter 100: iterations "
               f"{its}, converged {conv}, preconditioned residual {resnorm:.3e}, true "
@@ -1139,9 +1303,14 @@ def slice6_phases(dev: torch.device, smi: str) -> None:
     dw = DiffusionEquation(cartesian_mesh(cube, (nd,) * 3), cfl=10.0, **f32)
     b = dw.initial_state()
     step = dw.implicit_stepper()
-    x, _, its, _, conv = step(b)
+    t0 = time.perf_counter()
+    (x, _, its, _, conv), snap = solve_run(lambda: step(b))
+    first_ms = (time.perf_counter() - t0) * 1e3
     res_cg = (torch.linalg.norm(dw.implicit_matvec()(x) - b) / torch.linalg.norm(b)).item()
-    walls = step_walls(step, b)
+    walls, snap_w = solve_run(lambda: step_walls(step, b))
+    record_loop("H", snap_w, its=[its], **warm_profile(step, b, reps=3))
+    record_loop("H", first_ms=first_ms, capture_s=snap["capture_seconds"],
+                captures=snap["captures"])
     print(f"[16 main path H] CG, wall cartesian {nd}^3, cfl 10: iterations {its}, converged "
           f"{conv}, ||(I+D)x - b||/||b|| {res_cg:.3e} (tol {TOL_RESIDUAL:g}), wall per step "
           f"{np.median(walls):.3f} ms (median of 3); {smi}", flush=True)
@@ -1192,10 +1361,10 @@ def slice6_phases(dev: torch.device, smi: str) -> None:
     na = 24
     with tempfile.TemporaryDirectory() as out_dir:
         t0 = time.perf_counter()
-        res = wave_implicit.main(["--mesh-family", "kershaw"] + [str(na)] * 3
-                                 + ["--pc", "aggvcycle", "--ntmax", "2", "--tmax", "1e9",
-                                    "--device", "cuda", "--result-dir", out_dir])
-        torch.cuda.synchronize()
+        res, snap = solve_run(lambda: wave_implicit.main(
+            ["--mesh-family", "kershaw"] + [str(na)] * 3 + ["--pc", "aggvcycle", "--ntmax",
+                                                            "2", "--tmax", "1e9", "--device",
+                                                            "cuda", "--result-dir", out_dir]))
         wall = time.perf_counter() - t0
     its = [d["extras"][0] for d in res.diagnostics]
     conv = [d["extras"][2] for d in res.diagnostics]
@@ -1205,6 +1374,8 @@ def slice6_phases(dev: torch.device, smi: str) -> None:
           f"{wall:.2f} s; {smi}", flush=True)
     check(res.iterations == 2 and all(conv) and bool(torch.isfinite(res.state).all()),
           f"aggvcycle: iterations {its}, converged {conv}")
+    record_loop("I", snap, its=its, first_ms=res.step_seconds[0] * 1e3,
+                capture_s=snap["capture_seconds"])
     wk = WaveSystem(kershaw_mesh(cube, (na,) * 3), cfl=1e3 / 3, **f32)
     wk.divergence
     t0 = time.perf_counter()
@@ -1212,6 +1383,8 @@ def slice6_phases(dev: torch.device, smi: str) -> None:
     torch.cuda.synchronize()
     t_agg = time.perf_counter() - t0
     r = wk.initial_state()
+    # the driver's step (GMRES right-preconditioned by this hierarchy), warm
+    record_loop("I", **warm_profile(wk.implicit_stepper(M=agg.apply, side="right"), r))
     v_ms = median_ms({"V-cycle": lambda: agg.apply(r)}, calls=10, repeats=5)["V-cycle"]
     v_graph = graph_ms(lambda: agg.apply(r), calls=10, repeats=5)
     prof = device_profile(lambda: agg.apply(r), calls=5)
@@ -1342,13 +1515,13 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     solver = make_gmres(A_fm, pc.apply_fm, rtol=1e-5, atol=1e-5, maxiter=1000, side="right")
     Dmv = wi.divergence.matvec
     G0 = G = wi.pack_fm(wi.initial_state()).reshape(-1)
-    its, conv, walls, true_res = [], [], [], []
+    its, conv, walls, true_res, snaps = [], [], [], [], []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = solver(G, G)
-        torch.cuda.synchronize()
+        res, snap = solve_run(lambda: solver(G, G))
         walls.append((time.perf_counter() - t0) * 1e3)
+        snaps.append(snap)
         x_cm, b_cm = wi.unpack_fm(res.x), wi.unpack_fm(G)
         true_res.append((torch.linalg.norm(x_cm + Dmv(x_cm) - b_cm)
                          / torch.linalg.norm(b_cm)).item())
@@ -1371,6 +1544,19 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
           f"(profiler over one more, {sum(prof.counts.values())} launches); {smi}", flush=True)
     check(all(conv) and max(true_res) <= TOL_RESIDUAL and 40 <= its[0] <= 42,
           f"path J at {NJ}^3: iterations {its}, converged {conv}, residuals {true_res}")
+    device_j = sum(prof.values())
+    record_loop("J", snaps[1], its=its, first_ms=walls[0], capture_s=snaps[0]["capture_seconds"],
+                warm_ms=warm_ms, device_ms=device_j, busy=100 * device_j / warm_ms)
+    record_loop("J", captures=snaps[0]["captures"] + snaps[1]["captures"])
+    torch.cuda.synchronize()
+    held, peak = torch.cuda.memory_allocated() - mem0, torch.cuda.max_memory_allocated() - mem0
+    n_graphs = len(solver.graphs)
+    solver.release()
+    torch.cuda.synchronize()
+    print(f"[18 memory] device memory since the phase began, with the solver's {n_graphs} graphs: "
+          f"{held / 1e6:.1f} MB held, peak {peak / 1e6:.1f} MB (the host loop: 677.6 MB held, "
+          f"2,563.9 MB peak); after the solver released its graphs and buffers "
+          f"{(torch.cuda.memory_allocated() - mem0) / 1e6:.1f} MB held", flush=True)
 
     r = G.clone()
     prof = device_profile(lambda: pc.apply_fm(r), calls=3)
@@ -1911,6 +2097,7 @@ def main() -> int:
         DenseCirculantSolver,
         make_circulant_solver,
     )
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
 
     dev = torch.device("cuda")
     f32 = dict(device=dev, dtype=torch.float32)
@@ -2004,17 +2191,28 @@ def main() -> int:
         check(isinstance(M, FusedCirculantSolver), "fused=True did not give the K1 solver")
         step = model.implicit_stepper(M=M.as_preconditioner(), side="right")
         u0 = model.initial_state()
-        step(u0)  # warm-up (allocator, cuBLAS handles); not part of the run
-        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        # warm-up (allocator, cuBLAS handles) and the capture of the solve's
+        # graphs; not part of the run
+        _, snap = solve_run(lambda: step(u0))
+        first_b = dict(first_ms=(time.perf_counter() - t0) * 1e3,
+                       capture_s=snap["capture_seconds"], captures=snap["captures"])
         FusedCirculantSolver.launches = 0
-        res_b = run_time_loop(step, u0, model.dt, tmax=1e9, ntmax=3, log=None)
+        res_b, snap = solve_run(lambda: run_time_loop(step, u0, model.dt, tmax=1e9, ntmax=3,
+                                                      log=None))
         launches = FusedCirculantSolver.launches
+        masked_k1 = snap["masked_launches"][0]
         its = [d["extras"][0] for d in res_b.diagnostics]
         conv = [d["extras"][2] for d in res_b.diagnostics]
         print(f"[5 main path B] GMRES + K1 preconditioner, periodic 100^3: iterations {its}, "
               f"converged {conv}, ms/step {[round(s * 1e3, 3) for s in res_b.step_seconds]}, "
-              f"K1 launches {launches}", flush=True)
+              f"K1 launches {launches} ({snap['masked_launches'][0]} of them by "
+              f"{snap['masked']} masked iterations)", flush=True)
         check(launches > 0, "main path B never launched K1")
+        check(launches == k1_expected_launches(its, snap["masked"]),
+              f"main path B: {launches} K1 launches, expected "
+              f"{k1_expected_launches(its, snap['masked'])} from the iterations {its} and "
+              f"{snap['masked']} masked")
         check(len(its) == 3 and all(conv) and max(its) <= 3,
               f"main path B: iterations {its}, converged {conv}")
         # the same 3 steps by the direct cuFFT solve
@@ -2039,7 +2237,34 @@ def main() -> int:
         k1_b = sum(v for k, v in prof_b.items() if "k1_" in k)
         print(f"[5 main path B] one step in a tight loop: wall {wall_b:.3f} ms (median of 10), "
               f"device {busy_b:.3f} ms/step (profiled over 5 steps), K1 {k1_b:.4f} ms/step, busy "
-              f"{100 * busy_b / wall_b:.1f} %; {smi}", flush=True)
+              f"{100 * busy_b / wall_b:.1f} %; largest: " + "; ".join(
+                  f"{k[:40]} {v:.4f} ms x{prof_b.counts[k] / 5:g}" for k, v in
+                  sorted(prof_b.items(), key=lambda kv: -kv[1])[:6]) + f"; {smi}", flush=True)
+        record_loop("B", snap, its=its, warm_ms=wall_b, device_ms=busy_b,
+                    busy=100 * busy_b / wall_b)
+        record_loop("B", **first_b)
+        # the same solve with the host reading each iteration's flags before it
+        # queues the next (lookahead 0: no masked iteration, one idle gap each)
+        s0 = make_gmres(model.implicit_matvec(), M.as_preconditioner(), side="right")
+        s0._lookahead = 0
+        l0 = warm_profile(lambda u: s0(u, u), u0, reps=5)
+        record_loop("B", lookahead0=l0)
+        print(f"[5 main path B] the same solve at lookahead 0: wall {l0['warm_ms']:.3f} ms, "
+              f"device {l0['device_ms']:.3f} ms, busy {l0['busy']:.1f} % (lookahead 1, the "
+              f"default: {wall_b:.3f}, {busy_b:.3f}, {100 * busy_b / wall_b:.1f} %)", flush=True)
+        # the same 2 steps by the uncaptured loop: the same iterations, the
+        # same states
+        u_c, its_c = u0, []
+        for _ in range(2):
+            u_c, _, it_c, _, _ = step(u_c)
+            its_c.append(it_c)
+        u_e, its_e = uncaptured_steps(
+            lambda: make_gmres(model.implicit_matvec(), M.as_preconditioner(), side="right"), u0)
+        rel = ((u_c - u_e).abs().max() / u_e.abs().max()).item()
+        print(f"[5 main path B] 2 steps captured against uncaptured: iterations "
+              f"{its_c} and {its_e}, max|du|/max|u| {rel:.3e} (tol 1e-6)", flush=True)
+        check(its_c == its_e and rel <= 1e-6, f"path B captured {its_c} against uncaptured "
+              f"{its_e}, states {rel:.3e} apart")
 
         res_i = transport_implicit.main([str(N)] * 3 + ["--pc", "circulant", "--ntmax", "3",
                                                         "--device", "cuda", "--result-dir",
@@ -2124,6 +2349,7 @@ def main() -> int:
     j_launches = path_j_phases(dev, smi)
     k2["launches_by_path"].update(mesh_file_phases(dev, smi, mesh64, path_d))
     d_launches = distributed_phases(dev, smi, mesh64, path_d["state_c"])
+    device_loop_phase(smi)
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
     d_path = "20 the sharded drivers (parallel/)"
 
@@ -2133,6 +2359,7 @@ def main() -> int:
         "source": "circulantpreconditioner_tpu_torch/csrc/fused_circulant.cu",
         "replaces": "circulantpreconditioner_tpu/ops/fused_circulant.py:117",
         "launches": launches,
+        "masked_launches": masked_k1,
         "launches_by_path": {"B GMRES + K1 preconditioner 100^3, 3 steps": launches,
                              j_path: j_launches["K1"], d_path: d_launches["K1"]},
         "max_abs_err": max_abs_err,

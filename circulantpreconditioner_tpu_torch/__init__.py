@@ -64,8 +64,11 @@ from circulantpreconditioner_tpu_torch.ops import (  # noqa: F401
     WaveNormalStencilOperator,
     WaveStencilOperator,
     WindowedBlockOperator,
+    eigenvalue_diagonal,
     make_circulant_solver,
     make_plane_stencil_matvec,
+    transport_column,
+    transport_spectrum,
 )
 from circulantpreconditioner_tpu_torch.solvers import (  # noqa: F401
     AggregationVCyclePC,

@@ -1,4 +1,4 @@
-from circulantpreconditioner_tpu_torch.mesh.core import Mesh  # noqa: F401
+from circulantpreconditioner_tpu_torch.mesh.core import BoundaryGroup, Mesh  # noqa: F401
 from circulantpreconditioner_tpu_torch.mesh.med import read_med, read_mesh  # noqa: F401
 from circulantpreconditioner_tpu_torch.mesh.structured import (  # noqa: F401
     cartesian_mesh,

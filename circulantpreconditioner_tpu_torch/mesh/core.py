@@ -34,6 +34,12 @@ INTERIOR = 0
 
 
 @dataclass
+class BoundaryGroup:
+    name: str
+    code: int
+
+
+@dataclass
 class Mesh:
     dim: int
     cell_center: np.ndarray  # (nC, dim)
@@ -62,8 +68,20 @@ class Mesh:
     def is_structured(self) -> bool:
         return self.structured_shape is not None
 
+    def group_code(self, name: str) -> int:
+        return self.groups[name]
+
     def boundary_faces(self) -> np.ndarray:
         return np.nonzero(self.face_cells[:, 1] < 0)[0]
+
+    def max_neighbours(self) -> int:
+        """Max faces per cell (PETSc preallocation analog getMaxNbNeighbours)."""
+        cnt = np.zeros(self.n_cells, dtype=np.int64)
+        np.add.at(cnt, self.face_cells[:, 0], 1)
+        inner = self.face_cells[:, 1]
+        m = inner >= 0
+        np.add.at(cnt, inner[m], 1)
+        return int(cnt.max())
 
     def set_periodic(self, axes=None, tol: float = 1e-6) -> None:
         """Pair opposite boundary faces by translation along each axis in

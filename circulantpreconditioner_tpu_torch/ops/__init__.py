@@ -1,9 +1,12 @@
 from circulantpreconditioner_tpu_torch.ops.circulant import (  # noqa: F401
     BlockCirculantOperator,
     CirculantTransportOperator,
+    eigenvalue_diagonal,
     np_eigenvalue_diagonal,
     np_transport_spectrum,
     stencil_symbol,
+    transport_column,
+    transport_spectrum,
 )
 from circulantpreconditioner_tpu_torch.ops.complex_matmul import (  # noqa: F401
     ComplexMatmulKernel,

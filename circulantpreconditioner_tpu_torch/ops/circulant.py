@@ -81,6 +81,38 @@ def stencil_symbol(shape_zyx: Sequence[int], offsets: Sequence[Sequence[int]], c
     return torch.as_tensor(lam).to(device=device, dtype=cdt)
 
 
+def transport_column(n: int, *, device: torch.device | str = "cpu",
+                     dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """First column [1, −1, 0, …] of the 1D upwind circulant C1_n ([1] for
+    n = 1)."""
+    col = torch.zeros((n,), dtype=check_real_dtype(dtype), device=device)
+    col[0] = 1.0
+    if n > 1:
+        col[1] = -1.0
+    return col
+
+
+def transport_spectrum(n: int, *, device: torch.device | str = "cpu",
+                       dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """ĉ_n = 1 − exp(−2πik/n), the DFT of `transport_column(n)`, as a complex
+    tensor of `dtype`'s precision (built in complex128 on the host)."""
+    cdt = complex_dtype(check_real_dtype(dtype))
+    return torch.as_tensor(np_transport_spectrum(n)).to(device=device, dtype=cdt)
+
+
+def eigenvalue_diagonal(shape_zyx: Sequence[int], lambdas_zyx: Sequence[float], *,
+                        device: torch.device | str = "cpu", dtype: torch.dtype = torch.float32,
+                        rfft: bool = False) -> torch.Tensor:
+    """Λ of C as a complex tensor (`np_eigenvalue_diagonal` on the host, then
+    moved); rfft=True keeps the half x-spectrum of rfftn."""
+    if len(shape_zyx) != len(lambdas_zyx):
+        raise ValueError(f"{len(shape_zyx)} axes but {len(lambdas_zyx)} λ values")
+    cdt = complex_dtype(check_real_dtype(dtype))
+    lam = np_eigenvalue_diagonal(tuple(int(n) for n in shape_zyx),
+                                 tuple(float(l) for l in lambdas_zyx), rfft=rfft)
+    return torch.as_tensor(lam).to(device=device, dtype=cdt)
+
+
 class CirculantTransportOperator:
     """Device-cached circulant solver (`solve`) and stencil (`matvec`) for C."""
 
@@ -128,6 +160,14 @@ class CirculantTransportOperator:
     @property
     def device(self) -> torch.device:
         return self.lam_full.device
+
+    @property
+    def ndim(self) -> int:
+        return len(self.shape_zyx)
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(self.shape_zyx))
 
     def _as_grid(self, b: torch.Tensor) -> tuple[torch.Tensor, bool]:
         if b.ndim == 1:

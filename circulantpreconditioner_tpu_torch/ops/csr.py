@@ -68,11 +68,18 @@ class CSRMatrix:
                                                                             dtype=dtype),
                    tuple(A.shape), as_i(row_ids))
 
+    @property
+    def nnz(self) -> int:
+        return int(self.data.shape[0])
+
     def to_scipy(self):
         import scipy.sparse as sp
 
         return sp.csr_matrix((self.data.cpu().numpy(), self.indices.cpu().numpy(),
                               self.indptr.cpu().numpy()), shape=self.shape)
+
+    def to_dense(self) -> np.ndarray:
+        return self.to_scipy().toarray()
 
     def matvec(self, x: torch.Tensor) -> torch.Tensor:
         """y = A x via gather + index_add (segment sum). x may be (n,) or

@@ -3,20 +3,65 @@ circulantpreconditioner_tpu/solvers/bicgstab.py, PETSc's KSPBCGS).
 
 Right preconditioning; convergence on the true residual,
 ‖r‖ < max(rtol·‖b‖, atol); every denominator below finfo.tiny in magnitude
-is replaced by it, as in the JAX solver. The iteration runs on the host; the
-vectors and the scalars of the recurrence stay on the vectors' device, and
-each iteration copies the residual norm to the host for the stopping test
-(its one synchronisation).
+is replaced by it, as in the JAX solver. The solve is device-resident, as
+the JAX solver's jit + lax.while_loop is: the vectors, the scalars of the
+recurrence, the iteration count and the loop's `active` flag are device
+tensors, an iteration is one step function (one CUDA graph on the card)
+whose updates are masked by `active`, and the host reads the flags
+LOOKAHEAD iterations behind the device (solvers/cg.py, solvers/gmres.py).
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
-import numpy as np
 import torch
 
-from circulantpreconditioner_tpu_torch.solvers.gmres import KrylovResult, _identity
+from circulantpreconditioner_tpu_torch.solvers.cg import _ShortRecurrence
+from circulantpreconditioner_tpu_torch.solvers.gmres import KrylovResult
+from circulantpreconditioner_tpu_torch.utils.graphs import masked_update
+
+
+class BiCGStab(_ShortRecurrence):
+    _vectors = ("r", "r0", "v", "p")
+    _scalars = ("rho", "alpha", "omega")
+
+    def _guard(self, v: torch.Tensor) -> torch.Tensor:
+        return torch.where(torch.abs(v) > self.eps, v, self.eps)
+
+    def _init(self) -> None:
+        self.tol.copy_(torch.clamp(torch.linalg.norm(self.b) * self.rtol, min=self.atol))
+        r = self.b - self.A(self.x)
+        self.r.copy_(r)
+        self.r0.copy_(r)
+        for name in ("rho", "alpha", "omega"):
+            getattr(self, name).fill_(1.0)
+        self.v.zero_()
+        self.p.zero_()
+        self.res.copy_(torch.linalg.norm(r))
+        self.it.zero_()
+        self._post_flags(torch.ones((), dtype=torch.bool, device=r.device))
+
+    def _iterate(self) -> None:
+        act = self.active.clone()
+        r, r0, eps = self.r, self.r0, self.eps
+        rho_new = torch.dot(r0, r)
+        beta = (rho_new / self._guard(self.rho)) * (self.alpha / self._guard(self.omega))
+        p = r + beta * (self.p - self.omega * self.v)
+        phat = self.M(p)
+        v = self.A(phat)
+        alpha = rho_new / self._guard(torch.dot(r0, v))
+        s = r - alpha * v
+        shat = self.M(s)
+        t = self.A(shat)
+        tt = torch.dot(t, t)
+        omega = torch.dot(t, s) / torch.where(tt > eps, tt, eps)
+        r_new = s - omega * t
+        masked_update(act, (self.x, self.x + alpha * phat + omega * shat), (self.r, r_new),
+                      (self.v, v), (self.p, p), (self.rho, rho_new), (self.alpha, alpha),
+                      (self.omega, omega), (self.res, torch.linalg.norm(r_new)),
+                      (self.it, self.it + 1))
+        self._post_flags(act)
 
 
 def make_bicgstab(
@@ -26,46 +71,9 @@ def make_bicgstab(
     rtol: float = 1e-5,
     atol: float = 1e-5,
     maxiter: int = 1000,
-) -> Callable[..., KrylovResult]:
+) -> BiCGStab:
     """BiCGStab for a fixed operator/preconditioner pair: solve(b, x0=None)."""
-    if M is None:
-        M = _identity
-
-    def solve(b: torch.Tensor, x0: torch.Tensor | None = None) -> KrylovResult:
-        x = torch.zeros_like(b) if x0 is None else x0
-        eps = torch.tensor(torch.finfo(b.dtype).tiny, dtype=b.dtype, device=b.device)
-        guard = lambda v: torch.where(torch.abs(v) > eps, v, eps)  # noqa: E731
-        npdt = np.float64 if b.dtype == torch.float64 else np.float32
-        tol = max(npdt(rtol) * npdt(torch.linalg.norm(b).item()), npdt(atol))
-
-        r = b - A(x)
-        r0 = r
-        one = torch.ones((), dtype=b.dtype, device=b.device)
-        rho, alpha, omega = one, one, one
-        v = torch.zeros_like(b)
-        p = torch.zeros_like(b)
-        res = npdt(torch.linalg.norm(r).item())
-        it = 0
-        while res >= tol and it < maxiter:
-            rho_new = torch.dot(r0, r)
-            beta = (rho_new / guard(rho)) * (alpha / guard(omega))
-            p = r + beta * (p - omega * v)
-            phat = M(p)
-            v = A(phat)
-            alpha = rho_new / guard(torch.dot(r0, v))
-            s = r - alpha * v
-            shat = M(s)
-            t = A(shat)
-            tt = torch.dot(t, t)
-            omega = torch.dot(t, s) / torch.where(tt > eps, tt, eps)
-            x = x + alpha * phat + omega * shat
-            r = s - omega * t
-            rho = rho_new
-            res = npdt(torch.linalg.norm(r).item())
-            it += 1
-        return KrylovResult(x, it, float(res), bool(res < tol))
-
-    return solve
+    return BiCGStab(A, M, rtol=rtol, atol=atol, maxiter=maxiter)
 
 
 def bicgstab(A, b, x0=None, *, M=None, rtol: float = 1e-5, atol: float = 1e-5,

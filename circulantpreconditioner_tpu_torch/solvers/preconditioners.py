@@ -18,6 +18,12 @@ import numpy as np
 import torch
 
 from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix, CSRMatrix
+from circulantpreconditioner_tpu_torch.solvers.gmres import _identity
+
+
+def identity() -> Callable[[torch.Tensor], torch.Tensor]:
+    """M⁻¹ = I, the solvers' default when no preconditioner is given."""
+    return _identity
 
 
 def _diag_apply(dinv: torch.Tensor, r: torch.Tensor) -> torch.Tensor:

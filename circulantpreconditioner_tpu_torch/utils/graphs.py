@@ -1,0 +1,210 @@
+"""CUDA graphs and flag rings for the device-resident Krylov solves: the
+port's counterpart of the JAX package's `jax.jit` + `lax.while_loop`
+(circulantpreconditioner_tpu/solvers/gmres.py, cg.py, bicgstab.py).
+
+The JAX solvers trace the operator, the preconditioner and the stopping tests
+into one device program. Here a solver keeps its whole state (the vectors, the
+Givens matrix, the residual estimate, the counters and an `active` flag) in
+device tensors and runs each part of an iteration as a CUDA graph captured
+from its plain PyTorch code:
+
+- `GraphSet` runs named step functions. A step function takes no argument and
+  returns nothing: it reads and writes tensors allocated before it first runs
+  (static buffers), so an eager run and a replay are interchangeable. On the
+  card, the first call of a name runs the function eagerly on the capture
+  stream, which is its warm-up (cuFFT plans, cuBLAS workspaces, the
+  kernel library, lazy tables), and then captures it; every later call
+  replays the graph on PyTorch's current stream. The graphs of one set share
+  one memory pool: what they allocate lives only during a replay, and
+  replays on one stream never overlap, so any order is safe. A capture that
+  fails raises; nothing falls back to eager execution on the card. On the
+  CPU, for a set made with `capture=False` (a row-sharded solve, whose
+  collectives are not captured) or while `CAPTURE` is false, every call
+  runs eagerly.
+- `FlagRing` carries a few numbers per iteration to the host. After each
+  iteration the solver enqueues an asynchronous copy of its device flags into
+  a pinned slot and records an event; the host reads a slot after waiting on
+  its event, L iterations behind the device (the lookahead), so the card
+  always has work queued. On the CPU the flags are read directly.
+- Kernel launch counts. K1, K2 and K3 count their launches where their
+  wrappers launch them, in Python, which a replay does not reach. A graph
+  records how many launches of each it captured (the capture itself launches
+  nothing and counts nothing), and every replay adds them. An iteration that
+  a lookahead queued past the stop runs masked and launches its kernels all
+  the same: they are counted, and `STATS.masked_launches` holds them apart.
+- `STATS` sums over all solves: iterations kept and masked, the masked
+  iterations' launches, graph replays, eager calls, host waits, captures
+  and the seconds they took.
+"""
+
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, fields
+from typing import Callable, Hashable
+
+import numpy as np
+import torch
+
+
+def _kernel_classes() -> tuple:
+    from circulantpreconditioner_tpu_torch.ops.complex_matmul import ComplexMatmulKernel
+    from circulantpreconditioner_tpu_torch.ops.fused_circulant import FusedCirculantSolver
+    from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+
+    return (FusedCirculantSolver, PlaneStencilMatvec, ComplexMatmulKernel)
+
+
+def kernel_launches() -> tuple[int, ...]:
+    """The launch counters of K1, K2 and K3, in that order."""
+    return tuple(cls.launches for cls in _kernel_classes())
+
+
+def credit(counts: tuple[int, ...], sign: int = 1) -> None:
+    """Add (sign = 1) or take back (sign = −1) launches of K1, K2 and K3."""
+    for cls, n in zip(_kernel_classes(), counts):
+        cls.launches += sign * n
+
+
+def _diff(after: tuple[int, ...], before: tuple[int, ...]) -> tuple[int, ...]:
+    return tuple(a - b for a, b in zip(after, before))
+
+
+@dataclass
+class SolveStats:
+    solves: int = 0
+    iterations: int = 0  # iterations kept: the JAX while_loops' trips
+    masked: int = 0  # iterations run past the stop, masked
+    masked_launches: tuple[int, ...] = (0, 0, 0)  # K1, K2, K3 launched by the masked ones
+    replays: int = 0  # graph replays
+    eager_calls: int = 0  # step functions run eagerly (on the CPU, uncaptured, warm-ups)
+    waits: int = 0  # host waits on a flag event
+    captures: int = 0
+    capture_seconds: float = 0.0  # warm-up and capture of the graphs
+
+    def reset(self) -> None:
+        for f in fields(self):
+            setattr(self, f.name, f.default)
+
+    def snapshot(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in fields(self)}
+
+
+STATS = SolveStats()
+
+# GraphSets made while this is false run every step function eagerly on the
+# card too (a comparison of captured and uncaptured solves)
+CAPTURE = True
+
+# one capture stream per device, shared by every GraphSet: the warm-ups run on
+# it too, so the cuBLAS workspace it needs is made once, before any capture
+_CAPTURE_STREAMS: dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _capture_stream(device: torch.device) -> torch.cuda.Stream:
+    key = torch.device("cuda", torch.cuda.current_device() if device.index is None
+                       else device.index)
+    if key not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[key] = torch.cuda.Stream(key)
+    return _CAPTURE_STREAMS[key]
+
+
+class GraphSet:
+    """Named step functions of one solver, captured as CUDA graphs on the card
+    (see the module docstring). `len()` is the number of graphs held."""
+
+    def __init__(self, device: torch.device, capture: bool = True):
+        self.capture = bool(capture) and CAPTURE and device.type == "cuda"
+        self.device = device
+        self._graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, tuple[int, ...]]] = {}
+        self._pool = None
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def release(self) -> None:
+        """Drop every graph (and with them their memory pool)."""
+        self._graphs.clear()
+        self._pool = None
+
+    def run(self, key: Hashable, fn: Callable[[], None]) -> tuple[int, ...]:
+        """Run the step function `fn`, saved under `key`; returns the K1, K2
+        and K3 launches it made, which the counters already hold."""
+        if not self.capture:
+            before = kernel_launches()
+            fn()
+            STATS.eager_calls += 1
+            return _diff(kernel_launches(), before)
+        entry = self._graphs.get(key)
+        if entry is None:
+            return self._warm_up_and_capture(key, fn)
+        graph, counts = entry
+        graph.replay()
+        STATS.replays += 1
+        credit(counts)
+        return counts
+
+    def _warm_up_and_capture(self, key: Hashable, fn: Callable[[], None]) -> tuple[int, ...]:
+        t0 = time.perf_counter()
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        current = torch.cuda.current_stream(self.device)
+        side = _capture_stream(self.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            before = kernel_launches()
+            fn()  # this call's work, and the warm-up before capture
+            ran = kernel_launches()
+            graph = torch.cuda.CUDAGraph()
+            graph.capture_begin(pool=self._pool)
+            try:
+                fn()
+            except BaseException:
+                try:
+                    graph.capture_end()
+                except RuntimeError:
+                    pass  # the capture was invalidated; the first error says why
+                raise
+            graph.capture_end()
+            counts = _diff(kernel_launches(), ran)
+            credit(counts, -1)  # a capture launches nothing
+        current.wait_stream(side)
+        self._graphs[key] = (graph, counts)
+        STATS.eager_calls += 1
+        STATS.captures += 1
+        STATS.capture_seconds += time.perf_counter() - t0
+        return _diff(ran, before)
+
+
+class FlagRing:
+    """`slots` rows of `width` float64 flags on their way to the host. A step
+    function writes `flags` (a device tensor); `post(slot)` enqueues its copy
+    into the slot and, on the card, records the slot's event; `read(slot)`
+    waits on that event (a host wait, counted in STATS) and returns the row."""
+
+    def __init__(self, slots: int, width: int, device: torch.device):
+        self.on_card = device.type == "cuda"
+        self.flags = torch.zeros(width, dtype=torch.float64, device=device)
+        self.host = torch.zeros((slots, width), dtype=torch.float64, pin_memory=self.on_card)
+        self.events = [torch.cuda.Event() for _ in range(slots)] if self.on_card else []
+
+    def __len__(self) -> int:
+        return self.host.shape[0]
+
+    def post(self, slot: int) -> None:
+        self.host[slot].copy_(self.flags, non_blocking=self.on_card)
+        if self.on_card:
+            self.events[slot].record()
+
+    def read(self, slot: int) -> np.ndarray:
+        if self.on_card:
+            self.events[slot].synchronize()
+            STATS.waits += 1
+        return self.host[slot].numpy().copy()
+
+
+def masked_update(active: torch.Tensor, *pairs) -> None:
+    """dst ← new where `active` (a 0-d bool tensor), for each (dst, new):
+    torch.where, so that a NaN in a discarded iteration cannot leak."""
+    for dst, new in pairs:
+        torch.where(active, new, dst, out=dst)

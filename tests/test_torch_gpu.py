@@ -4,8 +4,10 @@ GMRES step on the wave system through K2, the staged DFT solve through K3,
 one dct2lm GMRES step through K2, and the paths with no hand-written kernel
 (ILU(0) and block-Jacobi ILU(0), diffusion, the aggregation V-cycle, the
 supercell SpMV and V-cycle of the tet meshes) on the card against the CPU,
-and the distributed layer's slab solve on a world of one rank over NCCL.
-They skip without a GPU.
+the distributed layer's slab solve on a world of one rank over NCCL, and
+the device-resident solves: K2 counted per graph replay, a capture failure
+raising, and every --pc choice of the implicit drivers solving under
+capture. They skip without a GPU.
 
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
@@ -451,3 +453,105 @@ def test_sharded_solves_on_card_through_nccl(cuda):
         x = slab.unshard(slab.solve(slab.shard(b)))
         assert (x - op.solve(b)).abs().max().item() <= 1e-12 * op.solve(b).abs().max().item()
     assert not dist.is_initialized()
+
+
+# --- device-resident solves: CUDA-graph replays (utils/graphs.py) -------------
+
+@pytest.mark.gpu
+def test_k2_launches_counted_per_replay(cuda):
+    """A captured K2 matvec replayed 5 times adds 5 launches; the capture
+    itself adds none, and the replays compute what the kernel computes."""
+    from circulantpreconditioner_tpu_torch.ops.plane_stencil import (
+        PlaneStencilMatvec,
+        make_plane_stencil_matvec,
+    )
+    from circulantpreconditioner_tpu_torch.utils.graphs import GraphSet
+
+    Wn = _kershaw_wave((16, 8, 5), cuda, torch.float32).normal_operator
+    mv = make_plane_stencil_matvec(Wn)
+    g = torch.as_tensor(np.random.default_rng(2).random((4, 16 * 8 * 5)), device=cuda,
+                        dtype=torch.float32)
+    out = torch.zeros_like(g)
+    graphs = GraphSet(cuda)
+    before = PlaneStencilMatvec.launches
+    graphs.run("k2", lambda: out.copy_(mv(g)))  # the eager warm-up, then the capture
+    assert PlaneStencilMatvec.launches == before + 1 and len(graphs) == 1
+    out.zero_()
+    for _ in range(5):
+        graphs.run("k2", lambda: out.copy_(mv(g)))
+    torch.cuda.synchronize()
+    assert PlaneStencilMatvec.launches == before + 6
+    yp = Wn.matvec_fm(g)
+    assert (out - yp).abs().max().item() <= 1e-5 * yp.abs().max().item()
+
+
+_DRIVER_RUNS = [
+    ("wave_implicit", ["--mesh-family", "kershaw", "8", "8", "8", "--pc", pc])
+    for pc in ("none", "pbjacobi", "ilu0", "bjacobi", "circulant2l", "dct2l", "dct2lm",
+               "gridmg", "aggvcycle")
+] + [
+    ("wave_implicit", ["--mesh-family", "kershawtet", "4", "4", "4", "--pc", "gridmg"]),
+    ("wave_implicit", ["8", "8", "8", "--pc", "ilu0", "--maxits", "50"]),
+] + [
+    ("transport_implicit", ["--mesh-family", "kershaw", "8", "8", "8", "--pc", pc])
+    for pc in ("none", "jacobi", "circulant")
+] + [
+    ("diffusion_implicit", ["--mesh-family", "kershaw", "8", "8", "8", "--method", m])
+    for m in ("cg", "gmres", "pc")
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("driver,argv", _DRIVER_RUNS,
+                         ids=[f"{d}-{'-'.join(a[-2:])}" for d, a in _DRIVER_RUNS])
+def test_every_krylov_pc_solves_under_capture(cuda, tmp_path, driver, argv):
+    """Each --pc choice of the implicit drivers solves its steps as CUDA-graph
+    replays on the card: the solves capture their graphs in the first step
+    and replay them, every step's solve is finite, and each converges where
+    the case converges on the CPU. The same steps with capture off
+    (graphs.CAPTURE false: every step function eager) take the same
+    iterations and end within 1e-6 of the captured state, so no replay read
+    a buffer that another graph of the shared pool had overwritten."""
+    import importlib
+
+    from circulantpreconditioner_tpu_torch.utils import graphs
+
+    main = importlib.import_module(f"circulantpreconditioner_tpu_torch.drivers.{driver}").main
+    args = argv + ["--ntmax", "2", "--tmax", "1e9", "--device", "cuda"]
+    STATS = graphs.STATS
+    STATS.reset()
+    res = main(args + ["--result-dir", str(tmp_path / "captured")])
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(res.state).all())
+    assert STATS.captures > 0 and STATS.replays > 0 and STATS.iterations > 0
+    conv = [d["extras"][2] for d in res.diagnostics]
+    if "--maxits" not in argv:
+        assert all(conv), (STATS.snapshot(), [d["extras"] for d in res.diagnostics])
+    its = [d["extras"][0] for d in res.diagnostics]
+
+    STATS.reset()
+    graphs.CAPTURE = False
+    try:
+        eager = main(args + ["--result-dir", str(tmp_path / "eager")])
+    finally:
+        graphs.CAPTURE = True
+    torch.cuda.synchronize()
+    assert STATS.captures == 0 and STATS.replays == 0 and STATS.iterations > 0
+    assert [d["extras"][0] for d in eager.diagnostics] == its
+    scale = eager.state.abs().max().item()
+    assert (res.state - eager.state).abs().max().item() <= 1e-6 * scale
+
+
+@pytest.mark.gpu
+def test_capture_failure_raises(cuda):
+    """A step function that reads a device value on the host cannot be
+    captured: the capture raises, and nothing falls back to eager runs. Last
+    in the file: a failed capture may leave the allocator routing its
+    stream's allocations to the abandoned pool."""
+    from circulantpreconditioner_tpu_torch.utils.graphs import GraphSet
+
+    x = torch.ones(8, device=cuda)
+    graphs = GraphSet(cuda)
+    with pytest.raises(RuntimeError):
+        graphs.run("host read", lambda: x.mul_(float(x.sum().item())))
+    assert len(graphs) == 0
