@@ -22,7 +22,9 @@ Phases, one stdout line each (more for the drivers' own logs):
    dense sums of 9000 terms err by ~1e-5 themselves). Then each of K1's five
    passes alone at 100³ and (7,11,13), fed the plain executor's previous
    output, against k1_passes_reference (≤ 1e-5 · max|reference|);
-4. main path A: the FFT transport driver at 100³, 5 steps;
+4. main path A: the FFT transport driver at 100³, 5 steps; its step
+   against the same step with capture off (phase 22), one step and a chunk
+   of 10 steps per graph replay;
 5. main path B: periodic 100³ transport, GMRES right-preconditioned by the
    full-3D fused circulant solve (K1), 3 steps through run_time_loop; every
    step must converge in ≤ 3 iterations, K1 must have been launched, and the
@@ -42,7 +44,8 @@ Phases, one stdout line each (more for the drivers' own logs):
    timed on a line of its own;
 8. main path C: the explicit wave driver at Kershaw 64³, 20 steps, through
    K2 (one launch per step), finite, and equal to the same 20 steps through
-   the plain operator to 1e-5 relative;
+   the plain operator to 1e-5 relative; its step against capture off (phase
+   22), one step and a chunk of 20 per replay, one K2 launch per step;
 9. main path D: the implicit wave driver at Kershaw 64³ --pc gridmg, 2 steps:
    every step converges, K2 runs in the GMRES matvec and in the V-cycle's
    fine level (the launch count is checked against the iterations), and
@@ -65,13 +68,16 @@ Phases, one stdout line each (more for the drivers' own logs):
    use_kernel=True) at 128³ with velocity (1, 0.5, 0.25) and at the 100³
    flagship λ: 4 K3 launches per solve, agreement with the einsum form to
    1e-5 relative, ‖C x − b‖/‖b‖ < 1e-4; then 5 transport steps at 100³ through
-   run_time_loop with that solver, equal to the cuFFT solve's to 1e-5;
+   run_time_loop with that solver as a captured step, equal to the cuFFT
+   solve's to 1e-5, and that step against capture off (phase 22), 4 K3
+   launches per step;
 13. main path F, the FFT projection preconditioners: wave_implicit --pc
    dct2lm at Kershaw 64³, 2 steps (every step converges, K2's launches match
    the iterations, the state equals a plain-operator run to 1e-4); --pc
    circulant2l and dct2l at Kershaw 16³; --pc dctfft at wall 64³ and --pc
    blockfft --periodic at 64³, 20 steps each, with the residual of one
-   direct step; transport_implicit --mesh-family kershaw 32³ --pc circulant,
+   direct step, and each step against capture off (phase 22);
+   transport_implicit --mesh-family kershaw 32³ --pc circulant,
    2 steps. The host build of the 64³ projection is timed on its own line;
 14. times: K3 per call against its plain version and one complex64
    torch.matmul (cuBLAS), by CUDA events, CUDA-graph replay and
@@ -97,7 +103,8 @@ Phases, one stdout line each (more for the drivers' own logs):
    10 (‖(I+D)x − b‖/‖b‖ < 1e-4), the FFT step on the periodic mesh against
    one CG solve of the same right-hand side (max|dx|/max|x| ≤ 1e-4), a
    Fourier mode's amplitude after 3 FFT steps against exact_mode_decay (1e-5
-   relative), and diffusion_implicit --method pc on Kershaw 64³, 2 steps
+   relative), the FFT step against capture off (phase 22), and
+   diffusion_implicit --method pc on Kershaw 64³, 2 steps
    (every step converges); the wall per step of each;
 17. main path I, wave_implicit --pc aggvcycle on Kershaw 24³, 2 steps (every
    step converges): iterations, the hierarchy's levels and host build, and
@@ -146,6 +153,14 @@ Phases, one stdout line each (more for the drivers' own logs):
    (1e-4);
    (d) wave_implicit --shard rows --pc circulant2l on phase 19b's welded
    Kershaw-tet 16³ file, 2 steps: the halo window route, converged. Every
+   sharded driver runs captured (its steps, or its GMRES, as CUDA-graph
+   replays with the NCCL collectives inside) and again with capture off:
+   graph replays in the first, the same iterations, states within 1e-6;
+   circulant2l's float32 GMRES iterations at 64³ equal the uncaptured
+   runs' recorded in PERF.md (106 and 62; pbjacobi's recorded 744 and 816
+   are printed beside its own, which move between calls). A chunk of 20
+   slab steps as one graph, its global norms inside against one eager
+   all-reduce after it: the wall per step of each. Every
    sharded operator's ms per apply (the distributed FFT and the all-matmul
    slab block solve too) by CUDA events and CUDA-graph replay, beside its
    one-device counterpart, with the NCCL records torch.profiler
@@ -165,6 +180,12 @@ Phases, one stdout line each (more for the drivers' own logs):
    on any synchronising call; phases 5 and 10 time paths B and D at
    lookahead 0 too; phase 18 prints the device memory with the solver's
    graphs and after it released them.)
+22. the captured steps (utils.graphs.CapturedStep, the JAX package's jitted
+   steps and lax.scan chunks): for paths A, C, E, the dctfft and blockfft
+   steps and the diffusion FFT step as the phases above measured them, the
+   wall per step (the time loop's own, each step or chunk ended by its
+   synchronisation) and the device time per step (torch.profiler), with
+   capture off and captured. Phases 1 to 20 print their seconds.
 Paths G to J and phase 20's sharded drivers launch none of K1, K2 and K3;
 their launch counts are printed (0 expected) and checked. K1, K2 and K3
 count their launches per graph replay (utils/graphs.py). The iterations a
@@ -209,6 +230,16 @@ TOL_K3 = TOL_K2  # max|o_K3 − o_plain| / max|o_plain|
 PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores (NVIDIA data sheet)
 PEAK_TF32 = 495e12  # H100 SXM dense TF32 on the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+
+
+_LAP = [T_START]
+
+
+def lap(phases: str) -> None:
+    """Print the seconds since the previous lap (or the start)."""
+    now = time.perf_counter()
+    print(f"[seconds] phases {phases}: {now - _LAP[0]:.1f} s", flush=True)
+    _LAP[0] = now
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_FLOPS) -> tuple[float, str]:
@@ -542,6 +573,12 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
               f"{wall_e:.2f} s, max|U - U_plain|/max|U_plain| {dev_e:.3e} (tol 1e-5)",
               flush=True)
         check(dev_e <= 1e-5, f"wave_explicit disagrees with the plain operator: {dev_e:.3e}")
+        # the driver's step (K2 inside), one graph replay per step and one per
+        # chunk of 20, against capture off
+        for chunk in (None, 20):
+            captured_against_eager(f"C wave_explicit Kershaw {NW}^3", me.explicit_stepper_fm,
+                                   me.pack_fm(me.initial_state()), me.dt, smi, steps=20,
+                                   chunk=chunk, per_step={"K2": 1})
 
         # --- 9: main path D, the implicit wave driver with the grid V-cycle -
         PlaneStencilMatvec.launches = FusedCirculantSolver.launches = 0
@@ -735,6 +772,7 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
     )
     from circulantpreconditioner_tpu_torch.models.transport import _direct_step, _identity_plus
     from circulantpreconditioner_tpu_torch.ops.assembly import wave_block_stencil
+    from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
     from circulantpreconditioner_tpu_torch.ops.circulant import (
         BlockCirculantOperator,
         CirculantTransportOperator,
@@ -835,8 +873,8 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
     sk = MatmulCirculantSolver.create(op.shape_zyx, op.lambdas_zyx, use_kernel=True, **f32)
     u0 = model.initial_state()
     ComplexMatmulKernel.launches = 0
-    res_e = run_time_loop(functools.partial(_direct_step, sk), u0, model.dt, tmax=1e9, ntmax=5,
-                          log=None)
+    res_e = run_time_loop(CapturedStep(functools.partial(_direct_step, sk)), u0, model.dt,
+                          tmax=1e9, ntmax=5, log=None)
     k3_steps = ComplexMatmulKernel.launches
     u_ref = u0
     fft_step = model.fft_stepper("fft")
@@ -850,6 +888,11 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
           f"{k3_steps} K3 launches")
     check(bool(torch.isfinite(res_e.state).all()) and dev_e <= 1e-5,
           f"path E disagrees with the cuFFT solve: {dev_e:.3e}")
+    # the same step, one graph replay per step (K3's four launches inside),
+    # against capture off
+    captured_against_eager(f"E staged DFT through K3 {N}^3",
+                           lambda: CapturedStep(functools.partial(_direct_step, sk)), u0,
+                           model.dt, smi, per_step={"K3": 4})
 
     # --- 13: main path F, the FFT projection preconditioners ---------------
     host = {}
@@ -957,6 +1000,12 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
             # the loop stops early once the state is stationary (‖dU‖ < 1e-5)
             check((res.iterations == 20 or res.stationary) and bool(torch.isfinite(res.state).all())
                   and res1 < TOL_RESIDUAL, f"{pc}: {res.iterations} steps, residual {res1:.3e}")
+            # the driver's step, one graph replay per step, against capture off
+            if pc == "dctfft":
+                captured_against_eager(f"dctfft {NW}^3", wm.dct_fft_stepper_fm,
+                                       wm.pack_fm(U0), wm.dt, smi)
+            else:
+                captured_against_eager(f"blockfft {NW}^3", wm.block_fft_stepper, U0, wm.dt, smi)
 
         res = transport_implicit.main(kershaw + ["32"] * 3 + common
                                       + ["--ntmax", "2", "--pc", "circulant"])
@@ -1173,6 +1222,95 @@ def warm_profile(step, U0, reps: int = 2) -> dict:
     return {"warm_ms": wall, "device_ms": device, "busy": 100 * device / wall}
 
 
+# phase 22: the captured steps (utils.graphs.CapturedStep), recorded by the
+# phases that run each path: captured against capture off in the same call
+CAPTURED_STEPS: dict[str, dict] = {}
+
+
+def loop_profile(step, U0, dt: float, steps: int, chunk: int | None = None,
+                 norms=None) -> dict:
+    """run_time_loop of `steps` steps from U0 (`chunk` steps per host
+    synchronisation), after one warm-up run: the wall per step (the median of
+    the loop's own step walls, each ended by its synchronisation), the device
+    time per step and the part of it in device-to-device copies (the captured
+    step's state copy among them; torch.profiler over one more run), and the
+    final state."""
+    from circulantpreconditioner_tpu_torch.models import run_time_loop
+
+    kw = dict(tmax=1e9, ntmax=steps, precision=0.0, log=None, chunk=chunk, global_norms=norms)
+    run_time_loop(step, U0, dt, **kw)
+    res = run_time_loop(step, U0, dt, **kw)
+    prof = device_profile(lambda: run_time_loop(step, U0, dt, **kw), calls=1)
+    device = sum(prof.values()) / steps
+    copies = sum(v for k, v in prof.items() if "DtoD" in k) / steps
+    wall = float(np.median(res.step_seconds)) * 1e3
+    return {"warm_ms": wall, "device_ms": device, "busy": 100 * device / wall,
+            "copy_ms": copies, "state": res.state}
+
+
+def captured_against_eager(path: str, make_step, U0, dt: float, smi: str, steps: int = 10,
+                           chunk: int | None = None, norms=None,
+                           per_step: dict[str, int] | None = None) -> dict:
+    """loop_profile of the captured step `make_step()` and of the same step
+    made with capture off (utils.graphs.CAPTURE false: its step functions run
+    eagerly); checks that the captured runs replayed graphs, that both
+    launched K1, K2 and K3 alike (`per_step`: the launches each step must
+    make), and that the states agree within 1e-6 relative. Recorded for
+    phase 22."""
+    from circulantpreconditioner_tpu_torch.utils import graphs
+
+    runs = {}
+    for capture in (True, False):
+        graphs.CAPTURE = capture
+        try:
+            step = make_step()
+            graphs.STATS.reset()
+            before = kernel_launches()
+            runs[capture] = loop_profile(step, U0, dt, steps, chunk, norms)
+            torch.cuda.synchronize()
+        finally:
+            graphs.CAPTURE = True
+        runs[capture]["snap"] = graphs.STATS.snapshot()
+        runs[capture]["launches"] = {k: v - before[k] for k, v in kernel_launches().items()}
+    c, e = runs[True], runs[False]
+    rel = ((c["state"] - e["state"]).abs().max() / e["state"].abs().max()).item()
+    rec = {"chunk": chunk or 1, "replays": c["snap"]["replays"],
+           "captures": c["snap"]["captures"], "rel": rel, "launches": c["launches"],
+           **{f"{k}_{mode}": r[k] for mode, r in (("captured", c), ("eager", e))
+              for k in ("warm_ms", "device_ms", "busy", "copy_ms")}}
+    CAPTURED_STEPS[path if chunk is None else f"{path}, chunk {chunk}"] = rec
+    print(f"[22 {path}] {steps} steps, chunk {rec['chunk']}: captured wall "
+          f"{c['warm_ms']:.4f} ms/step, device {c['device_ms']:.4f} ms/step (busy "
+          f"{c['busy']:.1f} %; device-to-device copies {c['copy_ms']:.4f} ms/step), "
+          f"{rec['captures']} graphs, {rec['replays']} replays; capture off: "
+          f"wall {e['warm_ms']:.4f}, device {e['device_ms']:.4f} (busy {e['busy']:.1f} %); "
+          f"K1, K2, K3 launches {c['launches']} (capture off {e['launches']}); "
+          f"max|dU|/max|U| {rel:.3e} (tol 1e-6); {smi}", flush=True)
+    check(rec["replays"] > 0 and rec["captures"] > 0 and e["snap"]["replays"] == 0,
+          f"path {path}: captured {c['snap']}, capture off {e['snap']}")
+    check(c["launches"] == e["launches"], f"path {path}: launches {c['launches']} captured, "
+          f"{e['launches']} with capture off")
+    for k, n in (per_step or {}).items():
+        check(c["launches"][k] == 3 * steps * n, f"path {path}: {c['launches'][k]} {k} "
+              f"launches in 3 runs of {steps} steps, expected {n} per step")
+    check(bool(torch.isfinite(c["state"]).all()) and rel <= 1e-6,
+          f"path {path}: captured and eager states {rel:.3e} apart")
+    return rec
+
+
+def captured_steps_phase(smi: str) -> None:
+    """Phase 22: every captured step's wall and device time per step,
+    captured and with capture off, as the earlier phases measured them."""
+    print(f"[22 captured steps] the explicit and direct steps as CUDA graphs (one per chunk "
+          f"length; the state in one buffer) against the same step functions run eagerly, "
+          f"measured in this run; {smi}", flush=True)
+    for path, r in CAPTURED_STEPS.items():
+        print(f"[22 {path}] wall {r['warm_ms_eager']:.4f} -> "
+              f"{r['warm_ms_captured']:.4f} ms/step, device {r['device_ms_eager']:.4f} -> "
+              f"{r['device_ms_captured']:.4f} ms/step (copies {r['copy_ms_captured']:.4f}), busy "
+              f"{r['busy_eager']:.1f} -> {r['busy_captured']:.1f} %", flush=True)
+
+
 def device_loop_phase(smi: str) -> None:
     """Phase 21: the device-resident solves of paths B, D, F, G, H, I and J,
     as the earlier phases ran them, beside the host loops' figures from
@@ -1329,6 +1467,7 @@ def slice6_phases(dev: torch.device, smi: str) -> None:
           f"{rel:.3e} (tol 1e-4; CG {its} iterations), wall per step {np.median(walls):.3f} ms "
           f"(median of 3); {smi}", flush=True)
     check(conv and rel <= 1e-4, f"the diffusion FFT step is off CG: {rel:.3e}")
+    captured_against_eager(f"H diffusion FFT step {nd}^3", dp.fft_stepper, b, dp.dt, smi)
     k = (8, 4, 2)
     c = mesh_p.cell_center
     u0 = torch.as_tensor(np.sin(2 * np.pi * (c @ np.asarray(k, dtype=np.float64)))).to(**f32)
@@ -1826,6 +1965,14 @@ def nccl_per_call(fn, calls: int = 20) -> dict[str, float]:
     return {e.key: e.count / calls for e in prof.key_averages() if "nccl" in e.key.lower()}
 
 
+# the row-sharded GMRES's iterations at Kershaw NW^3 in float32 on one NCCL
+# rank, uncaptured (PERF.md §6). circulant2l's are held; pbjacobi's ~800
+# float32 iterations move between calls with capture off too (740 against
+# 744 once; one device 807 against 805), so its captured run is held to the
+# uncaptured run of the same call (sharded_run) and printed beside these
+SHARDED_ITERS = {"pbjacobi": [744, 816], "circulant2l": [106, 62]}
+
+
 def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state) -> dict[str, int]:
     """Phase 20: the distributed layer (parallel/) on a world of one rank, the
     card, through NCCL: the slab and pencil solves and the sharded drivers
@@ -1866,6 +2013,7 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state) -> dic
     from circulantpreconditioner_tpu_torch.parallel.fft_dist import make_distributed_fft3
     from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
     from circulantpreconditioner_tpu_torch.solvers.circulant_pc import BlockCirculantProjectionPC
+    from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
 
     t_phase = time.perf_counter()
     rng = np.random.default_rng(20)
@@ -1873,10 +2021,37 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state) -> dic
     launched = {"K1": 0, "K2": 0, "K3": 0}
 
     def sharded_run(main, argv):
+        """The driver captured (its steps, or its GMRES, as graph replays
+        with the collectives inside), then with capture off: the same
+        iterations, states within 1e-6, the captured run's graph replays."""
+        from circulantpreconditioner_tpu_torch.utils import graphs
+
         reset_kernel_launches()
+        graphs.STATS.reset()
         res, text = run_captured(main, argv)
+        snap = graphs.STATS.snapshot()
+        graphs.CAPTURE = False
+        graphs.STATS.reset()
+        try:
+            eager = main(argv)
+        finally:
+            graphs.CAPTURE = True
+        eager_snap = graphs.STATS.snapshot()
         for k, v in kernel_launches().items():
             launched[k] += v
+        its = [d["extras"][0] for d in res.diagnostics if d["extras"]]
+        its_e = [d["extras"][0] for d in eager.diagnostics if d["extras"]]
+        rel = ((res.state - eager.state).abs().max() / eager.state.abs().max()).item()
+        label = " ".join(a for a in argv if a not in common and not a.startswith(tmp))
+        print(f"[20 captured] {main.__module__.rsplit('.', 1)[1]} {label}: "
+              f"{snap['captures']} graphs, {snap['replays']} replays; ms/step captured "
+              f"{[round(t * 1e3, 3) for t in res.step_seconds]}, capture off "
+              f"{[round(t * 1e3, 3) for t in eager.step_seconds]}; iterations {its} (capture "
+              f"off {its_e}); max|dU|/max|U| {rel:.3e} (tol 1e-6); {smi}", flush=True)
+        check(snap["replays"] > 0 and snap["captures"] > 0 and eager_snap["replays"] == 0,
+              f"{label}: captured {snap}, capture off {eager_snap}")
+        check(its == its_e and res.iterations == eager.iterations and rel <= 1e-6,
+              f"{label}: captured {its} against {its_e}, states {rel:.3e} apart")
         return res, text
 
     def per_apply(label: str, sharded, single, single_label: str, collectives: bool = True):
@@ -1943,6 +2118,30 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state) -> dic
                   f"{np.median(r.step_seconds) * 1e3:.4f} ms/step, max|U - U_pathC|/max|U_pathC| "
                   f"{rel:.3e} (tol 1e-5)", flush=True)
             check(r.iterations == 20 and rel <= 1e-5, f"wave_explicit --shard {shard}: {rel:.3e}")
+        # a chunk of 20 slab steps as one graph: the ranks' dnorms reduced
+        # inside it (run_time_loop's way) against one eager all-reduce after
+        # its replay
+        me = WaveSystem(mesh64, cfl=1.0 / 3, **f32)
+        S = SlabStencilOperator(me.varying_operator, dm)
+
+        def slab_step(u):
+            du = S.matvec(u)
+            return u - du, torch.linalg.norm(du.reshape(-1))
+
+        xs0 = S.shard_vector(me.initial_state())
+        in_graph, after = CapturedStep(slab_step), CapturedStep(slab_step)
+        chunks = {"norms inside the graph": lambda: (
+                      in_graph.start(xs0, dm.global_norms), in_graph.advance(20).cpu())[1],
+                  "one eager all-reduce per chunk": lambda: (
+                      after.start(xs0), dm.global_norms(after.advance(20)).cpu())[1]}
+        dn = {name: run() for name, run in chunks.items()}
+        check(torch.equal(*dn.values()), f"the chunk's global dnorms differ: {dn}")
+        walls = {name: np.median(step_walls(lambda _: run(), None, reps=7)) / 20
+                 for name, run in chunks.items()}
+        print(f"[20b chunk] 20 slab steps at Kershaw {NW}^3 as one graph, wall per step: "
+              + "; ".join(f"{k} {v:.4f} ms" for k, v in walls.items())
+              + f" (the same dnorms); {smi}", flush=True)
+        del me, S, in_graph, after
         # --- 20c: Kershaw NW^3 implicit, --shard rows ----------------------
         # float32 is the drivers' precision; its GMRES counts are printed
         # beside one device's. The counts are held (± 1) in float64, at
@@ -1961,12 +2160,17 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state) -> dic
                 conv = [d["extras"][2] for d in r.diagnostics]
                 rel = ((r.state - r1.state).abs().max() / r1.state.abs().max()).item()
                 print(f"[20c driver] wave_implicit Kershaw {n}^3 --shard rows --pc {pc} {prec}: "
-                      f"iterations {its} (one device: {its1}), converged {conv}, ms/step "
+                      f"iterations {its} (one device: {its1}"
+                      + (f"; uncaptured, as recorded: {SHARDED_ITERS[pc]}" if prec == "float32"
+                         else "") + f"), converged {conv}, ms/step "
                       f"{[round(t * 1e3, 1) for t in r.step_seconds]} (one device: "
                       f"{[round(t * 1e3, 1) for t in r1.step_seconds]}), "
                       f"max|U - U_1dev|/max|U_1dev| {rel:.3e}", flush=True)
                 check(len(its) == 2 and bool(torch.isfinite(r.state).all()),
                       f"--shard rows --pc {pc} {prec}: iterations {its}, non-finite state")
+                if prec == "float32" and pc == "circulant2l":
+                    check(its == SHARDED_ITERS[pc], f"--shard rows --pc {pc} float32: "
+                          f"iterations {its}, uncaptured {SHARDED_ITERS[pc]}")
                 if prec == "float64":
                     check(all(abs(a - c) <= 1 for a, c in zip(its, its1)),
                           f"--shard rows --pc {pc} float64: iterations {its} against {its1}")
@@ -2120,6 +2324,7 @@ def main() -> int:
     check(len(mma) > 0 and min(mma.values()) > 0, f"K3's float32 kernels have no tensor-core "
           f"instruction: {mma}")
 
+    lap("1 and 2")
     # --- 3: K1 against its plain version ---------------------------------
     rng = np.random.default_rng(1)
     h64 = 1.0 / 64
@@ -2181,6 +2386,13 @@ def main() -> int:
               "transport_fft driver left the initial value range")
         print(f"[4 main path A] transport_fft 100^3: {res_a.iterations} steps, "
               f"median {np.median(res_a.step_seconds) * 1e3:.3f} ms/step", flush=True)
+        # the driver's step, one graph replay per step and one per chunk of
+        # 10 (the JAX package's jit(lax.scan)), against capture off
+        model_a = TransportEquation(cartesian_mesh(((-0.5, 0.5),) * 3, (N,) * 3, periodic=True),
+                                    (1.0, 0.0, 0.0), cfl=1e3 / 3, **f32)
+        for chunk in (None, 10):
+            captured_against_eager(f"A transport_fft {N}^3", model_a.fft_stepper,
+                                   model_a.initial_state(), model_a.dt, smi, chunk=chunk)
 
         # --- 5: main path B ---------------------------------------------------
         mesh = cartesian_mesh(((-0.5, 0.5),) * 3, (N, N, N), periodic=True)
@@ -2342,14 +2554,22 @@ def main() -> int:
           f"({(8 * N**3 + 72 * spec) / 1e6:.2f} MB, {k1_flops(fused.plan, False) / 1e9:.3f} "
           f"GFLOP); the library yardstick is the cuFFT solve above, three calls", flush=True)
 
+    lap("3 to 6")
     k2, mesh64, mi, path_d = wave_phases(dev, smi)
+    lap("7 to 10")
     k3 = fft_pc_phases(dev, smi, mesh64, mi)
     k2["launches_by_path"].update(k3.pop("k2_launches_by_path"))
+    lap("11 to 14")
     slice6_phases(dev, smi)
+    lap("15 to 17")
     j_launches = path_j_phases(dev, smi)
+    lap("18")
     k2["launches_by_path"].update(mesh_file_phases(dev, smi, mesh64, path_d))
+    lap("19")
     d_launches = distributed_phases(dev, smi, mesh64, path_d["state_c"])
+    lap("20")
     device_loop_phase(smi)
+    captured_steps_phase(smi)
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
     d_path = "20 the sharded drivers (parallel/)"
 

@@ -3,7 +3,8 @@
 Implicit transport on a cartesian grid, each step solved DIRECTLY by the
 circulant FFT solver; a=(1,0,...), cfl=1e3/dim, tmax=0.05, stationarity 1e-5.
 `--shard slab|pencil` is the _mpi driver: the solve split over ranks, one
-process per device (parallel/fft_dist.py).
+process per device (parallel/fft_dist.py). Every step is a captured step:
+CUDA graphs on the card, the all-to-alls inside.
 
     python -m circulantpreconditioner_tpu_torch.drivers.transport_fft 100 100 100
     torchrun --nproc-per-node 4 -m circulantpreconditioner_tpu_torch.drivers.transport_fft \
@@ -26,6 +27,7 @@ from circulantpreconditioner_tpu_torch.drivers.common import (
     setup_dtype,
 )
 from circulantpreconditioner_tpu_torch.models import TransportEquation, run_time_loop
+from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
 
 
 def main(argv=None):
@@ -105,10 +107,13 @@ def _main_sharded(args):
             solver = PencilCirculantSolver.from_operator(op, dm)
         say(f"-- sharded over {dm.shape} devices ({args.shard})")
 
-        def step(u):
+        def local_step(u):
             u1 = solver.solve(u)
             return u1, torch.linalg.norm(u1 - u)  # this rank's part of ‖ΔU‖₂
 
+        # the JAX package's jitted shard_map solve: the all-to-alls and the
+        # global norms inside the step's graphs
+        step = CapturedStep(local_step)
         res = run_time_loop(
             step, solver.shard(model.initial_state()), model.dt, tmax=args.tmax,
             ntmax=args.ntmax, precision=args.precision, output_freq=args.output_freq,
@@ -116,6 +121,7 @@ def _main_sharded(args):
             on_output=make_sharded_output_cb(args, mesh, solver.unshard, dm.device,
                                              prefix="temperature"),
         )
+        step.release()  # NCCL destroys no communicator that a live graph holds
         res.state = solver.unshard(res.state)
         u = res.state.cpu().numpy()
         say(f"\nEnd at it={res.iterations} t={res.time:.6g} stationary={res.stationary}")

@@ -8,7 +8,8 @@ stencil on the tet meshes. `--shard` runs the expl_mpi workload, one process
 per device: the distributed MatMult loop (:90-135) with a z-slab stencil and
 plane halos (slab, topologically structured meshes) or a row-sharded ELL
 SpMV (rows, any mesh), ‖ΔU‖₂ reduced over the ranks, and the output gathered
-to rank 0 (VecScatterCreateToZero, :51,134-135).
+to rank 0 (VecScatterCreateToZero, :51,134-135). Every step, sharded or not,
+is a captured step: CUDA graphs on the card, the collectives inside.
 
     python -m circulantpreconditioner_tpu_torch.drivers.wave_explicit 50 50
     python -m circulantpreconditioner_tpu_torch.drivers.wave_explicit --mesh-family kershaw 64 64 64
@@ -32,6 +33,7 @@ from circulantpreconditioner_tpu_torch.drivers.common import (
     sharded_rows,
 )
 from circulantpreconditioner_tpu_torch.models import WaveSystem, run_time_loop
+from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
 
 
 def main(argv=None):
@@ -108,10 +110,13 @@ def _main_sharded(args):
         dm = device_mesh(args.devices)
         Aop = _make_sharded_operator(args, mesh, model, dm, dtype, say)
 
-        def step(u):
+        def local_step(u):
             du = Aop.matvec(u)
             return u - du, torch.linalg.norm(du.reshape(-1))  # this rank's part of ‖ΔU‖₂
 
+        # the JAX driver's jitted step: its halo exchange and the global norms
+        # inside the step's graphs
+        step = CapturedStep(local_step)
         res = run_time_loop(
             step, Aop.shard_vector(model.initial_state()), model.dt, tmax=args.tmax,
             ntmax=args.ntmax, precision=args.precision, output_freq=args.output_freq,
@@ -119,6 +124,7 @@ def _main_sharded(args):
             on_output=make_sharded_output_cb(args, mesh, Aop.unshard_vector, dm.device,
                                              split=model.split_fields, prefix="wave"),
         )
+        step.release()  # NCCL destroys no communicator that a live graph holds
         res.state = Aop.unshard_vector(res.state)
         pfin, _ = model.split_fields(res.state)
         say(f"\nEnd at it={res.iterations} t={res.time:.6g} stationary={res.stationary}")

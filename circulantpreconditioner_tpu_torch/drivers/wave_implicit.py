@@ -262,6 +262,7 @@ def _main_sharded(args):
             on_output=make_sharded_output_cb(args, mesh, As.unshard_vector, dm.device,
                                              split=model.split_fields, prefix="wave"),
         )
+        solver.release()  # NCCL destroys no communicator that a live graph holds
         res.state = As.unshard_vector(res.state)
         pfin, _ = model.split_fields(res.state)
         its = [d["extras"][0] for d in res.diagnostics if d["extras"]]

@@ -11,7 +11,9 @@
 - exact solutions: a periodic Fourier mode decays by 1/(1 + dt·λ_h(k)) per
   implicit step, λ_h the symbol of the discrete operator.
 
-Steppers are plain callables u → (u_new, dnorm[, iters, resnorm, converged]).
+Steppers are callables u → (u_new, dnorm[, iters, resnorm, converged]); the
+explicit and FFT ones are captured steps (utils/graphs.CapturedStep): CUDA
+graphs on the card, as the JAX package's steps are jitted.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from circulantpreconditioner_tpu_torch.ops.assembly import diffusion_csr, diffus
 from circulantpreconditioner_tpu_torch.ops.csr import CSRMatrix
 from circulantpreconditioner_tpu_torch.solvers import make_cg, make_gmres
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
+from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
 
 
 class DiffusionEquation:
@@ -88,8 +91,8 @@ class DiffusionEquation:
         return functools.partial(_identity_plus, self.divergence_op(operator))
 
     # --- steppers -----------------------------------------------------------
-    def explicit_stepper(self, operator: str = "auto"):
-        return functools.partial(_explicit_step, self.divergence_op(operator))
+    def explicit_stepper(self, operator: str = "auto") -> CapturedStep:
+        return CapturedStep(functools.partial(_explicit_step, self.divergence_op(operator)))
 
     def implicit_stepper(self, M=None, rtol: float = 1e-5, atol: float = 1e-5,
                          maxiter: int = 1000, method: str = "cg", operator: str = "auto"):
@@ -122,8 +125,8 @@ class DiffusionEquation:
             tuple(reversed(self.mesh.structured_shape)), offsets, blocks, device=self.device,
             dtype=self.dtype)
 
-    def fft_stepper(self):
-        return functools.partial(_direct_step, self.fft_solver)
+    def fft_stepper(self) -> CapturedStep:
+        return CapturedStep(functools.partial(_direct_step, self.fft_solver))
 
     # --- exact solutions ----------------------------------------------------
     def discrete_symbol(self, k_xyz) -> float:

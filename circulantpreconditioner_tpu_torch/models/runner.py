@@ -2,12 +2,17 @@
 counterpart of circulantpreconditioner_tpu/models/runner.py).
 
 Step until it ≥ ntmax, t > tmax, or stationarity ‖ΔU‖₂ < precision; log and
-call `on_output` every output_freq steps. With chunk > 1 the steps of a chunk
-are queued back to back and the host synchronises once per chunk (the JAX
-package runs the chunk as one lax.scan). On a row-sharded state (parallel/)
-each rank's step returns the norm of its own block of ΔU, and
-`global_norms` makes the global ‖ΔU‖₂ of them, once per step or chunk, so
-that every rank stops at the same step.
+call `on_output` every output_freq steps. With chunk > 1 the host
+synchronises once per chunk. A captured step (utils/graphs.CapturedStep: the
+direct and explicit steppers of the models and the sharded drivers) runs as
+CUDA graphs on the card: one replay per step, or one per chunk (the JAX
+package's jax.jit(lax.scan), one program per chunk length), the state in the
+step's buffer between them. The implicit steppers, whose Krylov loops the
+host drives, are called step by step, their steps of a chunk queued back to
+back. On a row-sharded state (parallel/) each rank's step returns the norm
+of its own block of ΔU, and `global_norms` makes the global ‖ΔU‖₂ of them,
+once per step or chunk (inside a captured step's graph), so that every rank
+stops at the same step.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ import numpy as np
 import torch
 
 from circulantpreconditioner_tpu_torch.utils.device import synchronize
+from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
 
 
 @dataclass
@@ -59,6 +65,9 @@ def run_time_loop(
                                       precision=precision, chunk=chunk,
                                       on_output=on_output, log=log,
                                       global_norms=global_norms)
+    captured = isinstance(step, CapturedStep)
+    if captured:
+        step.start(U0, global_norms)
     U = U0
     t = 0.0
     it = 0
@@ -66,9 +75,12 @@ def run_time_loop(
     result = TimeLoopResult(U, t, it, stationary)
     while it < ntmax and t <= tmax and not stationary:
         t0 = time.perf_counter()
-        U_new, dnorm, *extras = step(U)
-        if global_norms is not None:
-            dnorm = global_norms(torch.as_tensor(dnorm).reshape(1))[0]
+        if captured:
+            U_new, dnorm, extras = step.state, step.advance(1)[0], []
+        else:
+            U_new, dnorm, *extras = step(U)
+            if global_norms is not None:
+                dnorm = global_norms(torch.as_tensor(dnorm).reshape(1))[0]
         synchronize(U_new.device)
         dt_wall = time.perf_counter() - t0
         U = U_new
@@ -91,7 +103,7 @@ def run_time_loop(
                     f"solve wall {dt_wall*1e3:.3f} ms")
             if on_output is not None:
                 on_output(it, t, U.cpu().numpy(), extras)
-    result.state = U
+    result.state = U.clone() if captured else U
     result.time = t
     result.iterations = it
     result.stationary = stationary
@@ -100,6 +112,9 @@ def run_time_loop(
 
 def _run_time_loop_chunked(step, U0, dt, *, tmax, ntmax, precision, chunk, on_output, log,
                            global_norms=None):
+    captured = isinstance(step, CapturedStep)
+    if captured:
+        step.start(U0, global_norms)
     U = U0
     t = 0.0
     it = 0
@@ -108,14 +123,17 @@ def _run_time_loop_chunked(step, U0, dt, *, tmax, ntmax, precision, chunk, on_ou
     while it < ntmax and t <= tmax and not stationary:
         n = min(chunk, ntmax - it, max(int((tmax - t) / dt) + 1, 1))
         t0 = time.perf_counter()
-        dnorms, extras = [], []
-        for _ in range(n):
-            U, dnorm, *ex = step(U)
-            dnorms.append(torch.as_tensor(dnorm).reshape(()))
-            extras = ex
-        dnorms = torch.stack(dnorms)
-        if global_norms is not None:
-            dnorms = global_norms(dnorms)
+        if captured:
+            U, dnorms, extras = step.state, step.advance(n), []  # one replay
+        else:
+            dnorms, extras = [], []
+            for _ in range(n):
+                U, dnorm, *ex = step(U)
+                dnorms.append(torch.as_tensor(dnorm).reshape(()))
+                extras = ex
+            dnorms = torch.stack(dnorms)
+            if global_norms is not None:
+                dnorms = global_norms(dnorms)
         dnorms = dnorms.cpu().numpy()  # the chunk's one synchronisation
         dt_wall = time.perf_counter() - t0
         it += n
@@ -135,7 +153,7 @@ def _run_time_loop_chunked(step, U0, dt, *, tmax, ntmax, precision, chunk, on_ou
                 f"wall/step {dt_wall / n * 1e3:.3f} ms ({n}-step device chunk)")
         if on_output is not None:
             on_output(it, t, U.cpu().numpy(), last_extras)
-    result.state = U
+    result.state = U.clone() if captured else U
     result.time = t
     result.iterations = it
     result.stationary = stationary
@@ -144,7 +162,12 @@ def _run_time_loop_chunked(step, U0, dt, *, tmax, ntmax, precision, chunk, on_ou
 
 def scan_steps(step: Callable, U0: torch.Tensor, n_steps: int):
     """Run `n_steps` applications of `step` back to back with no host
-    synchronisation; returns (U_final, dnorms (n_steps,))."""
+    synchronisation (a captured step: one graph replay); returns (U_final,
+    dnorms (n_steps,))."""
+    if isinstance(step, CapturedStep):
+        step.start(U0)
+        dnorms = step.advance(n_steps)
+        return step.state.clone(), dnorms.clone()
     U = U0
     dnorms = []
     for _ in range(n_steps):

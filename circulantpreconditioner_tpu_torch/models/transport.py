@@ -7,7 +7,10 @@
 - three solve paths: explicit SpMV stepping, implicit GMRES, and the direct
   circulant FFT solve with the spectrum cached on the device.
 
-Steppers are plain callables U → (U_new, dnorm[, iters, resnorm, converged]).
+Steppers are callables U → (U_new, dnorm[, iters, resnorm, converged]). The
+explicit and direct ones are captured steps (utils/graphs.CapturedStep), the
+counterparts of the JAX package's jitted `_explicit_step_impl` and
+`_direct_step_impl`: CUDA graphs on the card, eager on the CPU.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from circulantpreconditioner_tpu_torch.ops.circulant import CirculantTransportOp
 from circulantpreconditioner_tpu_torch.ops.csr import CSRMatrix
 from circulantpreconditioner_tpu_torch.solvers.gmres import make_gmres
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
+from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
 
 
 def spherical_explosion_scalar(mesh: Mesh, inside: float = 650.0, outside: float = 600.0,
@@ -142,8 +146,8 @@ class TransportEquation:
         raise ValueError(f"unknown operator {operator!r}")
 
     # --- steppers -----------------------------------------------------------
-    def explicit_stepper(self, operator: str = "auto"):
-        return functools.partial(_explicit_step, self.divergence_op(operator))
+    def explicit_stepper(self, operator: str = "auto") -> CapturedStep:
+        return CapturedStep(functools.partial(_explicit_step, self.divergence_op(operator)))
 
     def implicit_matvec(self, operator: str = "auto"):
         """A = I + D as a callable."""
@@ -163,7 +167,7 @@ class TransportEquation:
 
         return step
 
-    def fft_stepper(self, method: str = "auto"):
+    def fft_stepper(self, method: str = "auto") -> CapturedStep:
         """Direct circulant solve per step, spectrum cached on the device.
 
         method: "fft" (torch.fft, cuFFT on the GPU), "matmul" (staged
@@ -180,4 +184,4 @@ class TransportEquation:
             solver = op
         else:
             raise ValueError(f"method must be auto/fft/matmul, got {method!r}")
-        return functools.partial(_direct_step, solver)
+        return CapturedStep(functools.partial(_direct_step, solver))

@@ -20,6 +20,10 @@
 - direct steppers on cartesian grids: the block-circulant solve on periodic
   grids (`block_fft_stepper`) and the DCT/DST solve on wall grids
   (`dct_fft_stepper`, `dct_fft_stepper_fm`).
+
+The explicit and direct steppers are captured steps (utils/graphs.
+CapturedStep), the counterparts of the JAX package's jitted
+`_explicit_step_impl`, `_blockfft_step_impl` and `_dctfft_step_fm_impl`.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from circulantpreconditioner_tpu_torch.ops.circulant import BlockCirculantOperat
 from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix
 from circulantpreconditioner_tpu_torch.solvers.gmres import make_gmres
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
+from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
 
 P0 = 155e5  # reference pressure (pressurised vessel), WaveSystem.hxx:16
 C0 = 700.0  # sound speed, WaveSystem.hxx:17
@@ -262,7 +267,7 @@ class WaveSystem:
             tuple(reversed(self.mesh.structured_shape)), offsets, blocks, device=self.device,
             dtype=self.dtype)
 
-    def block_fft_stepper(self, method: str = "auto"):
+    def block_fft_stepper(self, method: str = "auto") -> CapturedStep:
         """Block-circulant direct solve per step (periodic structured grids).
         method: "fft" (torch.fft, cuFFT on the GPU), "matmul" (staged DFT by
         matmul), or "auto" — the JAX rule, which takes "matmul" only on a
@@ -283,7 +288,7 @@ class WaveSystem:
             op = self.block_circulant_operator
         else:
             raise ValueError(f"method must be auto/fft/matmul, got {method!r}")
-        return functools.partial(_direct_step, op)
+        return CapturedStep(functools.partial(_direct_step, op))
 
     def _dct_solver(self):
         from circulantpreconditioner_tpu_torch.ops.dct_wave import DCTBlockWaveSolver
@@ -295,28 +300,28 @@ class WaveSystem:
             tuple(reversed(self.mesh.structured_shape)), self.dim, self.dt, self.c0,  # type: ignore[arg-type]
             self.mesh.spacing, device=self.device, dtype=self.dtype)  # type: ignore[attr-defined]
 
-    def dct_fft_stepper(self):
+    def dct_fft_stepper(self) -> CapturedStep:
         """Direct wall-boundary solve of (I + D)Uⁿ⁺¹ = Uⁿ by the exact DCT/DST
         block diagonalisation (ops/dct_wave.py), on the flat cell-major state."""
-        return functools.partial(_direct_step, self._dct_solver())
+        return CapturedStep(functools.partial(_direct_step, self._dct_solver()))
 
-    def dct_fft_stepper_fm(self):
+    def dct_fft_stepper_fm(self) -> CapturedStep:
         """The same on the field-major state (nb, nC) or its flat view: no
         (…, nb) ↔ (nb, …) relayout per step."""
-        return functools.partial(_direct_step_fm, self._dct_solver())
+        return CapturedStep(functools.partial(_direct_step_fm, self._dct_solver()))
 
     # --- steppers -----------------------------------------------------------
-    def explicit_stepper(self, operator: str = "auto"):
-        return functools.partial(_explicit_step, self.divergence_op(operator))
+    def explicit_stepper(self, operator: str = "auto") -> CapturedStep:
+        return CapturedStep(functools.partial(_explicit_step, self.divergence_op(operator)))
 
-    def explicit_stepper_fm(self, operator: str = "auto"):
+    def explicit_stepper_fm(self, operator: str = "auto") -> CapturedStep | None:
         """Field-major explicit stepper, or None when the mesh has no
         gather-free stencil form. The state is (dim+1, nC): pack_fm /
         unpack_fm at the I/O boundaries."""
         D = self.divergence_op_fm(operator)
         if D is None:
             return None
-        return functools.partial(_explicit_step, D)
+        return CapturedStep(functools.partial(_explicit_step, D))
 
     def implicit_matvec(self, operator: str = "auto"):
         """A = I + D on flat cell-major vectors."""

@@ -23,6 +23,10 @@ the JAX modules call inside `shard_map`:
 Every collective is issued at every world size, one rank included: there is
 no single-rank shortcut. A mesh spans the whole world, since a rank outside
 it would have no device of the mesh to drive.
+
+Each collective can be captured in a CUDA graph (utils/graphs.py: the
+sharded steps and GMRES): it issues on the current stream, its split sizes
+follow from the shapes alone, and none reads a device value on the host.
 """
 
 from __future__ import annotations

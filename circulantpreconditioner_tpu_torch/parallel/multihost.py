@@ -59,7 +59,9 @@ def rank_world(devices: int | None, device: str | torch.device = "cuda"):
     """The world of ranks for a sharded run of `devices` ranks (None: as
     many as the world has). Opens it from torchrun's environment, or as one
     rank, when no group is initialised, and then closes it on exit; a group
-    the caller initialised is used and left open."""
+    the caller initialised is used and left open. CUDA graphs that captured
+    its collectives must be released before it closes: destroying an NCCL
+    communicator waits for the graphs that hold it."""
     dev = resolve_device(device)
     if dev.type == "cuda" and devices and devices > torch.cuda.device_count():
         raise RuntimeError(f"--devices {devices}: {torch.cuda.device_count()} GPU(s) are "

@@ -29,8 +29,10 @@ device, as one graph per j.
 On row-sharded vectors (parallel/), each rank holds its block of b, x and
 the basis, and `allreduce` sums a tensor over the ranks: the norms and the
 CGS2 projections are then the global ones (the JAX package's psums under
-shard_map), and every rank takes the same stopping decisions. Its collectives
-are not captured: such a solve runs the same loop eagerly.
+shard_map). The collectives, the all-reduces and the operator's and
+preconditioner's exchanges, are captured in the graphs with the rest. Every
+rank reads the same all-reduced flags, so every rank takes the same stopping
+decisions and captures and replays the same graphs in the same order.
 """
 
 from __future__ import annotations
@@ -169,7 +171,7 @@ class GMRES:
         self.it = torch.zeros((), dtype=torch.int64, device=dev)
         self.active = torch.zeros((), dtype=torch.bool, device=dev)
         self.eps = float(torch.finfo(dt).tiny)
-        self.graphs = GraphSet(dev, capture=self.allreduce is None)  # collectives run eagerly
+        self.graphs = GraphSet(dev)
         self.ring = FlagRing(m + 1, 7, dev)  # slot k: inner index k; slot m: the start
         self._key = key
 
@@ -304,8 +306,7 @@ def make_gmres(
     allreduce: Callable[[torch.Tensor], torch.Tensor] | None = None,
 ) -> GMRES:
     """GMRES for a fixed operator/preconditioner pair: solve(b, x0=None).
-    allreduce: sums a tensor over the ranks of a row-sharded solve (which
-    then runs uncaptured)."""
+    allreduce: sums a tensor over the ranks of a row-sharded solve."""
     return GMRES(A, M, restart=restart, rtol=rtol, atol=atol, maxiter=maxiter, divtol=divtol,
                  side=side, allreduce=allreduce)
 

@@ -1,26 +1,31 @@
-"""CUDA graphs and flag rings for the device-resident Krylov solves: the
-port's counterpart of the JAX package's `jax.jit` + `lax.while_loop`
-(circulantpreconditioner_tpu/solvers/gmres.py, cg.py, bicgstab.py).
+"""CUDA graphs for the port's compiled programs: the counterpart of the JAX
+package's `jax.jit` steps, its `jax.jit(lax.scan)` chunks of a time loop and
+its jitted `lax.while_loop` Krylov solves (circulantpreconditioner_tpu/
+models/runner.py, solvers/gmres.py, cg.py, bicgstab.py).
 
-The JAX solvers trace the operator, the preconditioner and the stopping tests
-into one device program. Here a solver keeps its whole state (the vectors, the
-Givens matrix, the residual estimate, the counters and an `active` flag) in
-device tensors and runs each part of an iteration as a CUDA graph captured
-from its plain PyTorch code:
+The JAX package traces each of these into one device program. Here each runs
+as CUDA graphs captured from its plain PyTorch code:
 
 - `GraphSet` runs named step functions. A step function takes no argument and
   returns nothing: it reads and writes tensors allocated before it first runs
   (static buffers), so an eager run and a replay are interchangeable. On the
   card, the first call of a name runs the function eagerly on the capture
   stream, which is its warm-up (cuFFT plans, cuBLAS workspaces, the
-  kernel library, lazy tables), and then captures it; every later call
-  replays the graph on PyTorch's current stream. The graphs of one set share
-  one memory pool: what they allocate lives only during a replay, and
-  replays on one stream never overlap, so any order is safe. A capture that
-  fails raises; nothing falls back to eager execution on the card. On the
-  CPU, for a set made with `capture=False` (a row-sharded solve, whose
-  collectives are not captured) or while `CAPTURE` is false, every call
-  runs eagerly.
+  kernel library, lazy tables, a communicator's first collective), and then
+  captures it; every later call replays the graph on PyTorch's current
+  stream. The graphs of one set share one memory pool: what they allocate
+  lives only during a replay, and replays on one stream never overlap, so
+  any order is safe. A capture that fails raises; nothing falls back to
+  eager execution on the card. On the CPU, or while `CAPTURE` is false when
+  the set is made, every call runs eagerly.
+- `CapturedStep` is a time step U → (U_new, dnorm), the counterpart of a
+  `@jax.jit` step impl. It keeps the state in one static buffer and runs n
+  steps as one graph (one per n, as `make_runner(n)`'s cache holds one
+  program per chunk length): the steps chain through the pool, and the last
+  state is copied back into the buffer, one state copy per graph. Called as
+  a function it stays functional, as a jitted impl is: the argument is
+  copied in and the result copied out, so a state it returned is never
+  overwritten by a later call. `models/runner.py` drives the buffer itself.
 - `FlagRing` carries a few numbers per iteration to the host. After each
   iteration the solver enqueues an asynchronous copy of its device flags into
   a pinned slot and records an event; the host reads a slot after waiting on
@@ -32,9 +37,14 @@ from its plain PyTorch code:
   nothing and counts nothing), and every replay adds them. An iteration that
   a lookahead queued past the stop runs masked and launches its kernels all
   the same: they are counted, and `STATS.masked_launches` holds them apart.
-- `STATS` sums over all solves: iterations kept and masked, the masked
-  iterations' launches, graph replays, eager calls, host waits, captures
-  and the seconds they took.
+- `STATS` sums over all solves and steps: iterations kept and masked, the
+  masked iterations' launches, graph replays, eager calls, host waits,
+  captures and the seconds they took.
+
+NCCL collectives (parallel/mesh_utils.py) are captured like any other work:
+they issue on the capturing stream, with split sizes fixed when the step is
+built, and the eager warm-up makes each communicator's first call before
+any capture.
 """
 
 from __future__ import annotations
@@ -93,7 +103,7 @@ class SolveStats:
 STATS = SolveStats()
 
 # GraphSets made while this is false run every step function eagerly on the
-# card too (a comparison of captured and uncaptured solves)
+# card too (a comparison of captured and uncaptured solves and steps)
 CAPTURE = True
 
 # one capture stream per device, shared by every GraphSet: the warm-ups run on
@@ -113,8 +123,8 @@ class GraphSet:
     """Named step functions of one solver, captured as CUDA graphs on the card
     (see the module docstring). `len()` is the number of graphs held."""
 
-    def __init__(self, device: torch.device, capture: bool = True):
-        self.capture = bool(capture) and CAPTURE and device.type == "cuda"
+    def __init__(self, device: torch.device):
+        self.capture = CAPTURE and device.type == "cuda"
         self.device = device
         self._graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, tuple[int, ...]]] = {}
         self._pool = None
@@ -174,6 +184,66 @@ class GraphSet:
         STATS.captures += 1
         STATS.capture_seconds += time.perf_counter() - t0
         return _diff(ran, before)
+
+
+class CapturedStep:
+    """A pure time step `fn`: U → (U_new, dnorm), run as CUDA graphs on the
+    card (see the module docstring). `start(U0, norms)` loads the state
+    buffer, `advance(n)` runs n steps as one graph and returns their dnorms,
+    `state` is the buffer; calling the object is one functional step. With
+    `norms` (a sharded state's global_norms: local dnorms → global ones) the
+    reduction runs inside the graph. The graphs are kept while the state's
+    shape, dtype and device and `norms` stay; `release()` drops them."""
+
+    def __init__(self, fn: Callable):
+        self.fn = fn
+        self._key = None
+
+    def release(self) -> None:
+        if self._key is not None:
+            self.graphs.release()
+            del self.graphs, self._U, self._dn
+        self._key = None
+
+    def start(self, U0: torch.Tensor, norms: Callable | None = None) -> None:
+        key = (tuple(U0.shape), U0.dtype, U0.device, norms)
+        if key != self._key:
+            self.release()
+            self.graphs = GraphSet(U0.device)
+            self._U = torch.empty_like(U0)
+            self._dn: dict[int, torch.Tensor] = {}
+            self._key = key
+        self._U.copy_(U0)
+
+    @property
+    def state(self) -> torch.Tensor:
+        """The state buffer, which the next `advance` overwrites."""
+        return self._U
+
+    def advance(self, n: int) -> torch.Tensor:
+        """Run n steps from the state buffer into it; returns their dnorms, a
+        buffer that the next `advance(n)` overwrites."""
+        norms = self._key[3]
+        if n not in self._dn:
+            self._dn[n] = torch.empty(n, dtype=self._U.dtype, device=self._U.device)
+        dn = self._dn[n]
+
+        def chunk() -> None:
+            U, ds = self._U, []
+            for _ in range(n):
+                U, d = self.fn(U)[:2]
+                ds.append(d.reshape(()))
+            d = torch.stack(ds)
+            dn.copy_(d if norms is None else norms(d))
+            self._U.copy_(U)  # the chunk's one state copy
+
+        self.graphs.run(n, chunk)
+        return dn
+
+    def __call__(self, U: torch.Tensor):
+        self.start(U)
+        dn = self.advance(1)
+        return self._U.clone(), dn[0].clone()
 
 
 class FlagRing:

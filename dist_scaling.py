@@ -9,9 +9,12 @@ against the one-device cuFFT solve on every rank, 1e-5 relative), the halo
 ELL, all-gather ELL and slab-stencil SpMVs of the Kershaw 64³ wave operator
 and the distributed projection PC's apply (each checked against its
 one-device counterpart, 1e-5 and 1e-4), each in ms per apply by CUDA events
-over chains of applies begun together on every rank; then
-`wave_implicit --shard rows --pc circulant2l` at Kershaw 64³ for 2 steps:
-GMRES iterations and ms per step. The last line is one JSON object of these
+over chains of applies begun together on every rank; then the sharded
+drivers, `wave_explicit --shard slab` (20 steps) and `wave_implicit --shard
+rows --pc circulant2l` (2 steps) at Kershaw 64³ and `transport_fft --shard
+slab` at 128³ (5 steps), each captured (CUDA graphs, the collectives inside)
+and with capture off: ms per step and GMRES iterations side by side (the
+same iterations, states within 1e-6). The last line is one JSON object of these
 figures with the card's name and power limit. Run it at P = 1 and at P = 4
 on the same host to compare them. Exits non-zero when a check fails.
 """
@@ -53,7 +56,11 @@ def check(ok: bool, what: str) -> None:
 
 
 def main() -> int:
-    from circulantpreconditioner_tpu_torch.drivers import wave_implicit
+    from circulantpreconditioner_tpu_torch.drivers import (
+        transport_fft,
+        wave_explicit,
+        wave_implicit,
+    )
     from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
     from circulantpreconditioner_tpu_torch.models import WaveSystem
     from circulantpreconditioner_tpu_torch.ops.circulant import CirculantTransportOperator
@@ -69,6 +76,7 @@ def main() -> int:
         rank_world,
     )
     from circulantpreconditioner_tpu_torch.solvers.circulant_pc import BlockCirculantProjectionPC
+    from circulantpreconditioner_tpu_torch.utils import graphs
 
     out = {}
     with rank_world(None, "cuda"):
@@ -131,12 +139,48 @@ def main() -> int:
             f"max|dz|/max|z| {rel:.2e}", flush=True)
         del model, D, A, Ah, pc, x, y_ref, z_ref
 
-        res = wave_implicit.main(["--mesh-family", "kershaw", str(NW), str(NW), str(NW),
-                                  "--shard", "rows", "--pc", "circulant2l", "--ntmax", "2",
-                                  "--tmax", "1e9"])
-        out["circulant2l iterations"] = [d["extras"][0] for d in res.diagnostics]
-        out["circulant2l ms/step"] = [t * 1e3 for t in res.step_seconds]
-        check(all(d["extras"][2] for d in res.diagnostics), "circulant2l did not converge")
+        # the sharded drivers, captured (the default: their steps, or their
+        # GMRES, as CUDA-graph replays with the collectives inside) and with
+        # capture off, in turns
+        kershaw = ["--mesh-family", "kershaw", str(NW), str(NW), str(NW), "--tmax", "1e9"]
+        runs = {
+            f"wave_explicit --shard slab {NW}^3": (
+                wave_explicit, kershaw + ["--shard", "slab", "--ntmax", "20"]),
+            f"transport_fft --shard slab {N}^3": (
+                transport_fft, [str(N)] * 3 + ["--shard", "slab", "--ntmax", "5", "--tmax", "1e9"]),
+            f"wave_implicit --shard rows --pc circulant2l {NW}^3": (
+                wave_implicit,
+                kershaw + ["--shard", "rows", "--pc", "circulant2l", "--ntmax", "2"]),
+        }
+        for name, (driver, argv) in runs.items():
+            res = {}
+            for capture in (True, False):
+                graphs.CAPTURE = capture
+                graphs.STATS.reset()
+                try:
+                    res[capture] = driver.main(argv)
+                finally:
+                    graphs.CAPTURE = True
+                replays = graphs.STATS.replays
+                check((replays > 0) == capture,
+                      f"{name}: {replays} graph replays, capture {capture}")
+            its = {c: [d["extras"][0] for d in r.diagnostics if d["extras"]]
+                   for c, r in res.items()}
+            rel = ((res[True].state - res[False].state).abs().max()
+                   / res[False].state.abs().max()).item()
+            check(its[True] == its[False] and rel <= 1e-6,
+                  f"{name}: captured {its[True]} against {its[False]}, states {rel:.3e} apart")
+            check(all(d["extras"][2] for d in res[True].diagnostics if d["extras"]),
+                  f"{name} did not converge")
+            out[name] = {"ms/step captured": [t * 1e3 for t in res[True].step_seconds],
+                         "ms/step capture off": [t * 1e3 for t in res[False].step_seconds],
+                         "iterations": its[True], "iterations capture off": its[False],
+                         "max|dU|/max|U|": rel}
+            c, e = out[name]["ms/step captured"], out[name]["ms/step capture off"]
+            say(f"[P={P}] {name}: ms/step captured first {c[0]:.3f} (its captures), then "
+                f"median {np.median(c[1:]):.4f}; capture off first {e[0]:.3f}, then median "
+                f"{np.median(e[1:]):.4f}; iterations {its[True]} (capture off {its[False]}); "
+                f"states {rel:.2e} apart", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     if rank0:

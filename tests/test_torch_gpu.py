@@ -7,7 +7,10 @@ supercell SpMV and V-cycle of the tet meshes) on the card against the CPU,
 the distributed layer's slab solve on a world of one rank over NCCL, and
 the device-resident solves: K2 counted per graph replay, a capture failure
 raising, and every --pc choice of the implicit drivers solving under
-capture. They skip without a GPU.
+capture; every captured step of the models (the jitted steps' and lax.scan
+chunks' counterparts) against the same steps with capture off, and the
+sharded drivers' steps and GMRES captured through NCCL. They skip without a
+GPU.
 
 This file imports no JAX, so it also runs on a machine that has only the
 port's dependencies:
@@ -23,6 +26,8 @@ held to the plain version in float64. (1, 5, 8) has λ_z = 0: on an axis of
 one point the transport spectrum is 1 (ops/circulant.py, as in the JAX
 package) while matvec's roll is the identity.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -538,6 +543,146 @@ def test_every_krylov_pc_solves_under_capture(cuda, tmp_path, driver, argv):
     torch.cuda.synchronize()
     assert STATS.captures == 0 and STATS.replays == 0 and STATS.iterations > 0
     assert [d["extras"][0] for d in eager.diagnostics] == its
+    scale = eager.state.abs().max().item()
+    assert (res.state - eager.state).abs().max().item() <= 1e-6 * scale
+
+
+# --- captured steps (utils/graphs.CapturedStep): the jitted steps' and
+# lax.scan chunks' counterparts ------------------------------------------------
+
+def _captured_steppers(dev, dtype):
+    """name → (model, captured stepper, initial state) for every explicit and
+    direct stepper of the models, and path E's solve through K3."""
+    from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh
+    from circulantpreconditioner_tpu_torch.models import DiffusionEquation, WaveSystem
+    from circulantpreconditioner_tpu_torch.models.transport import _direct_step
+    from circulantpreconditioner_tpu_torch.ops.dft_matmul import MatmulCirculantSolver
+    from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
+
+    kw = dict(device=dev, dtype=dtype)
+    box = ((-0.5, 0.5),) * 3
+    tr = TransportEquation(cartesian_mesh(box, (16, 12, 10), periodic=True),
+                           (1.0, -0.5, 0.25), cfl=0.3, **kw)
+    td = TransportEquation(cartesian_mesh(box, (16, 12, 10), periodic=True),
+                           (1.0, 0.5, 0.25), cfl=1e3 / 3, **kw)
+    wk = _kershaw_wave((16, 16, 16), dev, dtype, cfl=1.0 / 3)
+    wp = WaveSystem(cartesian_mesh(box, (12, 10, 8), periodic=True), cfl=1e3 / 3, **kw)
+    ww = WaveSystem(cartesian_mesh(box, (12, 10, 8)), cfl=1e3 / 3, **kw)
+    de = DiffusionEquation(cartesian_mesh(box, (16, 12, 10)), cfl=0.9, **kw)
+    dp = DiffusionEquation(cartesian_mesh(box, (16, 12, 10), periodic=True), cfl=100.0, **kw)
+    op = td.fft_operator
+    k3 = MatmulCirculantSolver.create(op.shape_zyx, op.lambdas_zyx, use_kernel=True, **kw)
+    return {
+        "transport-explicit": lambda: (tr, tr.explicit_stepper(), tr.initial_state()),
+        "transport-fft": lambda: (td, td.fft_stepper("fft"), td.initial_state()),
+        "transport-matmul": lambda: (td, td.fft_stepper("matmul"), td.initial_state()),
+        "transport-k3": lambda: (td, CapturedStep(functools.partial(_direct_step, k3)),
+                                 td.initial_state()),
+        "wave-explicit": lambda: (wk, wk.explicit_stepper(), wk.initial_state()),
+        "wave-explicit-fm-k2": lambda: (wk, wk.explicit_stepper_fm(),
+                                        wk.pack_fm(wk.initial_state())),
+        "wave-blockfft": lambda: (wp, wp.block_fft_stepper(), wp.initial_state()),
+        "wave-dctfft": lambda: (ww, ww.dct_fft_stepper(), ww.initial_state()),
+        "wave-dctfft-fm": lambda: (ww, ww.dct_fft_stepper_fm(), ww.pack_fm(ww.initial_state())),
+        "diffusion-explicit": lambda: (de, de.explicit_stepper(), de.initial_state()),
+        "diffusion-fft": lambda: (dp, dp.fft_stepper(), dp.initial_state()),
+    }
+
+
+_CAPTURED = ["transport-explicit", "transport-fft", "transport-matmul", "transport-k3",
+             "wave-explicit", "wave-explicit-fm-k2", "wave-blockfft", "wave-dctfft",
+             "wave-dctfft-fm", "diffusion-explicit", "diffusion-fft"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("chunk", [1, 3])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-6), (torch.float64, 1e-12)],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("name", _CAPTURED)
+def test_captured_step_equals_eager(cuda, name, dtype, tol, chunk):
+    """7 steps of each captured stepper through run_time_loop (chunk 3: 3, 3
+    and 1 steps per graph) against the same steps with capture off: equal
+    states, and the kernels' launches counted per replay as the eager run
+    counts them (K2 once per explicit field-major step, K3 four times per
+    staged solve)."""
+    from circulantpreconditioner_tpu_torch.models import run_time_loop
+    from circulantpreconditioner_tpu_torch.utils import graphs
+
+    runs = []
+    for capture in (True, False):
+        graphs.CAPTURE = capture
+        try:
+            model, step, U0 = _captured_steppers(cuda, dtype)[name]()
+            graphs.STATS.reset()
+            before = graphs.kernel_launches()
+            res = run_time_loop(step, U0, model.dt, tmax=1e9, ntmax=7, precision=0.0,
+                                log=None, chunk=chunk)
+            torch.cuda.synchronize()
+        finally:
+            graphs.CAPTURE = True
+        launches = tuple(a - b for a, b in zip(graphs.kernel_launches(), before))
+        runs.append((res, launches, graphs.STATS.snapshot()))
+    (res, launches, snap), (eager, eager_launches, eager_snap) = runs
+    assert snap["captures"] == (2 if chunk == 3 else 1) and snap["replays"] > 0
+    assert eager_snap["captures"] == eager_snap["replays"] == 0
+    assert launches == eager_launches
+    if name == "wave-explicit-fm-k2":
+        assert launches[1] == 7
+    if name == "transport-k3":
+        assert launches[2] == 28
+    assert res.iterations == eager.iterations == 7
+    assert bool(torch.isfinite(res.state).all())
+    scale = eager.state.abs().max().item()
+    assert (res.state - eager.state).abs().max().item() <= tol * scale
+    d, de = (np.array([x["dnorm"] for x in r.diagnostics]) for r in (res, eager))
+    assert np.abs(d - de).max() <= tol * np.abs(de).max()
+
+
+_SHARDED = [
+    ("wave_explicit", ["--mesh-family", "kershaw", "16", "16", "16", "--shard", "slab"]),
+    ("wave_explicit", ["--mesh-family", "kershaw", "16", "16", "16", "--shard", "rows",
+                       "--chunk", "3"]),
+    ("transport_fft", ["16", "16", "16", "--shard", "slab"]),
+    ("transport_fft", ["16", "16", "16", "--shard", "pencil", "--chunk", "3"]),
+    ("wave_implicit", ["--mesh-family", "kershaw", "8", "8", "8", "--shard", "rows",
+                       "--pc", "pbjacobi"]),
+    ("wave_implicit", ["--mesh-family", "kershaw", "8", "8", "8", "--shard", "rows",
+                       "--pc", "circulant2l"]),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("driver,argv", _SHARDED,
+                         ids=[f"{d}-{'-'.join(a[a.index('--shard') + 1:])}" for d, a in _SHARDED])
+def test_sharded_steps_captured_through_nccl(cuda, tmp_path, driver, argv):
+    """The sharded drivers on a world of one NCCL rank: the explicit and
+    direct steps (halo exchanges, all-to-alls and the global norms) and the
+    row-sharded GMRES (its all-reduces and the PC's exchanges) run as graph
+    replays, and take the iterations and reach the states of the same run
+    with capture off (1e-6 relative)."""
+    import importlib
+
+    from circulantpreconditioner_tpu_torch.utils import graphs
+
+    main = importlib.import_module(f"circulantpreconditioner_tpu_torch.drivers.{driver}").main
+    steps = 6 if "--chunk" in argv else 3  # a chunk of 3 replays from the second chunk on
+    args = argv + ["--ntmax", str(steps), "--tmax", "1e9", "--device", "cuda"]
+    runs = []
+    for capture in (True, False):
+        graphs.CAPTURE = capture
+        graphs.STATS.reset()
+        try:
+            res = main(args + ["--result-dir", str(tmp_path / str(capture))])
+        finally:
+            graphs.CAPTURE = True
+        torch.cuda.synchronize()
+        runs.append((res, graphs.STATS.snapshot()))
+    (res, snap), (eager, eager_snap) = runs
+    assert snap["captures"] > 0 and snap["replays"] > 0
+    assert eager_snap["replays"] == 0
+    its = [d["extras"][0] for d in res.diagnostics if d["extras"]]
+    assert its == [d["extras"][0] for d in eager.diagnostics if d["extras"]]
+    assert res.iterations == eager.iterations == steps
     scale = eager.state.abs().max().item()
     assert (res.state - eager.state).abs().max().item() <= 1e-6 * scale
 

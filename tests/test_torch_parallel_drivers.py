@@ -5,7 +5,8 @@ gathered final state (1e-10 × max|U| for the direct and explicit drivers,
 rtol 1e-6 for GMRES at its rtol 1e-5) and the GMRES iterations of every
 step. transport_fft --shard slab (with a checkpoint, written by rank 0) and
 --shard pencil; wave_explicit --shard slab (with --vtk, written by rank 0
-alone) and --shard rows; wave_implicit --shard rows with --pc none,
+alone), --shard rows and --shard slab --chunk 3 (its 3 steps one chunk, the
+global norms inside the chunk); wave_implicit --shard rows with --pc none,
 pbjacobi and circulant2l, and its window route on a welded, RCM-ordered
 Kershaw-tet Gmsh file (4³, 384 tets: the smallest sizes take it too, from
 2³, and at 4³ each of 4 ranks owns 12 clusters and a 16-unit halo)."""
@@ -31,7 +32,8 @@ def _runs(P, tmp, tet_file):
          + common),
         ("wave_explicit", KERSHAW + ["--shard", "rows"] + common),
     ] + [("wave_implicit", KERSHAW + ["--shard", "rows"] + pc + common) for pc in IMPLICIT_PCS] + [
-        ("wave_implicit", [tet_file, "--shard", "rows", "--pc", "circulant2l"] + common)]
+        ("wave_implicit", [tet_file, "--shard", "rows", "--pc", "circulant2l"] + common),
+        ("wave_explicit", KERSHAW + ["--shard", "slab", "--chunk", "3"] + common)]
 
 
 @pytest.fixture(scope="module", params=[1, 2, 4])
@@ -106,3 +108,10 @@ def test_wave_implicit_window_route_matches_jax(world):
     """The RCM-ordered tet file takes the halo window SpMV at every P."""
     _check(world, (7,), 1e-6)
     assert "halo windowed" in world[3][7][3]
+
+
+def test_wave_explicit_shard_slab_chunked_matches_jax(world):
+    """--chunk 3: the 3 steps as one chunk (one graph on the card), the
+    ranks' dnorms reduced once, as the JAX driver's jit(lax.scan)."""
+    _check(world, (8,), 1e-10)
+    assert "(3-step device chunk)" in world[3][8][3]
