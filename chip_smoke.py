@@ -186,6 +186,14 @@ Phases, one stdout line each (more for the drivers' own logs):
    wall per step (the time loop's own, each step or chunk ended by its
    synchronisation) and the device time per step (torch.profiler), with
    capture off and captured. Phases 1 to 20 print their seconds.
+23. the port's measurement programs (circulantpreconditioner_tpu_torch/
+   bench.py and bench_suite.py, paired differenced chains on the card): the
+   flagship in full, as `python -m circulantpreconditioner_tpu_torch.bench`
+   runs it (the dense collapse at 100³ under the 1e-4 residual gate and its
+   bound, the staged solve with and without K3 and the fused solve, K1), and
+   a quick mode of the suite's rows wave_explicit, spmv and wave_implicit
+   (gridmg, its iteration gate kept) at Kershaw 16³ with short chains; their
+   JSON lines, and their K1, K2 and K3 launches in the kernels line.
 Paths G to J and phase 20's sharded drivers launch none of K1, K2 and K3;
 their launch counts are printed (0 expected) and checked. K1, K2 and K3
 count their launches per graph replay (utils/graphs.py). The iterations a
@@ -1333,6 +1341,44 @@ def device_loop_phase(smi: str) -> None:
               f"{HOST_LOOP_FIGURES[path]}", flush=True)
         check(r["replays_per_it"] > 0 and r["captures"] > 0,
               f"path {path}'s solves ran no graph: {r}")
+
+
+def bench_phase(smi: str) -> dict[str, int]:
+    """Phase 23: the flagship of bench.py in full and bench_suite.py's rows
+    3, 4 and 6 in a quick mode at Kershaw 16³. Returns K1, K2 and K3's
+    launches on it (counted from 0)."""
+    from circulantpreconditioner_tpu_torch import bench, bench_suite
+
+    t_phase = time.perf_counter()
+    log = lambda msg: print(f"[23] {msg}", flush=True)  # noqa: E731
+    reset_kernel_launches()
+    rec = bench.flagship_record(log=log)
+    sub = rec["submetrics"]
+    print(f"[23 bench.py] {json.dumps(rec)}", flush=True)
+    print(f"[23 bench.py] flagship {rec['value']:.1f} solves/s ({1e3 / rec['value']:.6f} ms per "
+          f"solve; bound {rec['bound_ms']:.6f} ms, {rec['bound_by']}), residual "
+          f"{sub['flagship_rel_residual']:.3e} (gate {TOL_RESIDUAL:g}); staged "
+          f"{sub['staged_full3d_solves_per_s']:.1f}, through K3 "
+          f"{sub['staged_full3d_k3_solves_per_s']:.1f} (K3 per solve "
+          f"{sub['staged_full3d_k3_launches_per_solve']['K3']:g}), fused "
+          f"{sub['fused_full3d_solves_per_s']:.1f} (K1 per solve "
+          f"{sub['fused_full3d_launches_per_solve']['K1']:g}); {smi}", flush=True)
+    check(sub["staged_full3d_k3_launches_per_solve"]["K3"] == 4
+          and sub["fused_full3d_launches_per_solve"]["K1"] == 1
+          and not any(sub["flagship_launches_per_solve"].values()),
+          f"bench.py's solvers launched {sub}")
+    s = bench_suite.Suite(torch.device("cuda"), log=log)
+    recs = [bench_suite.bench_wave_explicit(s, 16, K1=20, K2=100, block=10),
+            bench_suite.bench_spmv(s, 16, K1=20, K2=100, block=10),
+            bench_suite.bench_wave_implicit(s, 16, K1=2, K2=6)]
+    for r in recs:
+        print(f"[23 bench_suite.py, quick, 16^3] {json.dumps(r)}", flush=True)
+        check(not r.get("gate_failures"), f"{r['metric']} at 16^3: {r.get('gate_failures')}")
+        check(r["launches_per_step"]["K2"] >= 1, f"{r['metric']} at 16^3 launched no K2")
+    launched = kernel_launches()
+    print(f"[23] K1, K2, K3 launches in phase 23: {launched}; phase 23 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launched
 
 
 def slice6_phases(dev: torch.device, smi: str) -> None:
@@ -2570,8 +2616,12 @@ def main() -> int:
     lap("20")
     device_loop_phase(smi)
     captured_steps_phase(smi)
+    lap("21 and 22")
+    b_launches = bench_phase(smi)
+    lap("23")
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
     d_path = "20 the sharded drivers (parallel/)"
+    b_path = "23 bench.py flagship and bench_suite.py rows at 16^3"
 
     print(json.dumps({"kernels": [{
         "name": "fused_circulant_solve (K1)",
@@ -2581,7 +2631,8 @@ def main() -> int:
         "launches": launches,
         "masked_launches": masked_k1,
         "launches_by_path": {"B GMRES + K1 preconditioner 100^3, 3 steps": launches,
-                             j_path: j_launches["K1"], d_path: d_launches["K1"]},
+                             j_path: j_launches["K1"], d_path: d_launches["K1"],
+                             b_path: b_launches["K1"]},
         "max_abs_err": max_abs_err,
         "ms": k1_graph["K1 (fused CUDA)"],
         "plain_ms": k1_graph["K1 plain (torch.matmul)"],
@@ -2597,14 +2648,14 @@ def main() -> int:
         "source": "circulantpreconditioner_tpu_torch/csrc/plane_stencil.cu",
         "replaces": "circulantpreconditioner_tpu/ops/pallas_stencil.py:69",
         **k2, "launches_by_path": {**k2["launches_by_path"], j_path: j_launches["K2"],
-                                   d_path: d_launches["K2"]},
+                                   d_path: d_launches["K2"], b_path: b_launches["K2"]},
     }, {
         "name": "complex_matmul (K3)",
         "route": "cuda",
         "source": "circulantpreconditioner_tpu_torch/csrc/complex_matmul.cu",
         "replaces": "circulantpreconditioner_tpu/ops/pallas_kernels.py:33",
         **k3, "launches_by_path": {**k3["launches_by_path"], j_path: j_launches["K3"],
-                                   d_path: d_launches["K3"]},
+                                   d_path: d_launches["K3"], b_path: b_launches["K3"]},
     }]}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(f"card: {smi}")
