@@ -194,6 +194,17 @@ Phases, one stdout line each (more for the drivers' own logs):
    a quick mode of the suite's rows wave_explicit, spmv and wave_implicit
    (gridmg, its iteration gate kept) at Kershaw 16³ with short chains; their
    JSON lines, and their K1, K2 and K3 launches in the kernels line.
+24. the grid V-cycle on z-slabs (parallel/vcycle_dist.py), run last in phase
+   20's world of one NCCL rank (its seconds printed apart) at Kershaw 32³ in
+   float32: K2 at the path's shape (the rank's slab and its two halo planes)
+   against its plain version (1e-5); the V-cycle's apply against
+   GridVCyclePC.apply_fm (1e-5 relative); the row-sharded field-major GMRES
+   step with it (K2 on the rank's slab and halo planes): 33 iterations,
+   equal to the one-device step's, the same K2 launches per warm step, and
+   captured against capture off (the same iterations, states within 1e-6,
+   no replay with capture off); then bench_suite.py's distributed row
+   (`dist_worker`) at world size 1 with chains of 1 and 3, its gates held.
+   Its K2 launches on the sharded step go into the kernels line.
 Paths G to J and phase 20's sharded drivers launch none of K1, K2 and K3;
 their launch counts are printed (0 expected) and checked. K1, K2 and K3
 count their launches per graph replay (utils/graphs.py). The iterations a
@@ -216,6 +227,8 @@ Any failed check raises, and the script exits non-zero without that line.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -2019,14 +2032,17 @@ def nccl_per_call(fn, calls: int = 20) -> dict[str, float]:
 SHARDED_ITERS = {"pbjacobi": [744, 816], "circulant2l": [106, 62]}
 
 
-def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state) -> dict[str, int]:
+def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state,
+                       inside=None) -> tuple[dict[str, int], object]:
     """Phase 20: the distributed layer (parallel/) on a world of one rank, the
     card, through NCCL: the slab and pencil solves and the sharded drivers
     at full size (20a to 20d), each sharded operator's time per apply beside
     its one-device counterpart and the NCCL records of one apply. At one rank
     every collective is issued and copies the rank's own data: the times are
-    the layer's cost on one card, not scaling figures. Returns K1 to K3's
-    launches on the sharded drivers (none expected)."""
+    the layer's cost on one card, not scaling figures. `inside(dm)` runs last,
+    in the same world (phase 24), its seconds apart. Returns K1 to K3's
+    launches on the sharded drivers (none expected) and what `inside`
+    returned."""
     import torch.distributed as dist
 
     from circulantpreconditioner_tpu_torch.drivers import transport_fft, wave_explicit, wave_implicit
@@ -2315,10 +2331,115 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state) -> dic
         check(rel <= 1e-6, f"HaloWindowOperator is off WindowedBlockOperator: {rel:.3e}")
         per_apply(f"HaloWindowOperator Kershaw-tet {nt}^3 (against W: {rel:.1e})",
                   lambda: H.matvec(xh), lambda: W.matvec(x1), "WindowedBlockOperator.matvec")
+        t_inside = time.perf_counter()
+        inside_out = inside(dm) if inside is not None else None
+        t_inside = time.perf_counter() - t_inside
     check(not dist.is_initialized(), "phase 20 left its process group open")
-    print(f"[20] phase 20 took {time.perf_counter() - t_phase:.1f} s; K1 to K3 launches on the "
-          f"sharded drivers {launched}", flush=True)
+    print(f"[20] phase 20 took {time.perf_counter() - t_phase - t_inside:.1f} s; K1 to K3 "
+          f"launches on the sharded drivers {launched}", flush=True)
     check(not any(launched.values()), f"a sharded driver launched a kernel: {launched}")
+    return launched, inside_out
+
+
+# the sharded gridmg case at Kershaw NV^3: its one-card GMRES count (the
+# bench row wave_implicit_step_ms_kershaw32, results/bench_suite_r05.json)
+NV, GRIDMG_ITERS_NV = 32, 33
+
+
+def sharded_vcycle_phase(dev: torch.device, smi: str, dm) -> dict[str, int]:
+    """Phase 24, inside phase 20's world of one NCCL rank: the grid V-cycle on
+    z-slabs (parallel/vcycle_dist.py) at Kershaw NV^3 in float32, against the
+    one-device GridVCyclePC, and bench_suite.py's distributed row at world
+    size 1 with short chains. Returns K1 to K3's launches on the sharded
+    GMRES step (counted from 0)."""
+    from circulantpreconditioner_tpu_torch import bench_suite
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+    from circulantpreconditioner_tpu_torch.parallel import SlabGridVCyclePC
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+    from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
+    from circulantpreconditioner_tpu_torch.utils import graphs
+
+    t_phase = time.perf_counter()
+    f32 = dict(device=dev, dtype=torch.float32)
+    model = WaveSystem(kershaw_mesh(((0.0, 1.0),) * 3, (NV,) * 3), cfl=1e3 / 3, **f32)
+    pc = GridVCyclePC.from_grid_model(model.divergence, model.mesh.topology_shape,
+                                      A0_apply=model.implicit_matvec(),
+                                      A0_apply_fm=model.implicit_matvec_fm(), shift=1.0,
+                                      dtype=torch.float32)
+    spc = SlabGridVCyclePC.from_wave_model(model, dm, pc=pc)
+    r = torch.as_tensor(np.random.default_rng(24).random(model.divergence.shape[0]), **f32)
+    z1 = pc.apply_fm(r)
+    rel = ((spc.unshard(spc.apply(spc.shard(r))) - z1).abs().max() / z1.abs().max()).item()
+    print(f"[24 apply] SlabGridVCyclePC at Kershaw {NV}^3 ({spc.describe()}) against "
+          f"GridVCyclePC.apply_fm: max|dz|/max|z| {rel:.3e} (tol 1e-5)", flush=True)
+    check(rel <= 1e-5, f"the sharded V-cycle apply is off the one-device apply: {rel:.3e}")
+
+    # K2 at the path's shape, the rank's slab and its two halo planes, against
+    # its plain version on the same inputs
+    Wx = spc.fine.op
+    x_ext = torch.as_tensor(np.random.default_rng(25).random((Wx.m, Wx.arrays[1].shape[-1])),
+                            **f32)
+    y_k2, y_plain = spc.fine.ext_apply(x_ext), Wx.matvec_fm(x_ext)
+    err = ((y_k2 - y_plain).abs().max() / y_plain.abs().max()).item()
+    print(f"[24 K2] on the slab and halo planes {tuple(x_ext.shape)} (grid {Wx.shape_zyx}): "
+          f"max|y_K2 - y_plain|/max|y_plain| {err:.3e} (tol {TOL_K2[torch.float32]:g})",
+          flush=True)
+    check(err <= TOL_K2[torch.float32], f"K2 on the slab is off its plain version: {err:.3e}")
+    kw = dict(rtol=1e-5, atol=1e-5, maxiter=1000, side="right")
+    G0 = model.pack_fm(model.initial_state()).reshape(-1)
+    b = spc.shard(G0)
+    one = make_gmres(model.implicit_matvec_fm(), pc.apply_fm, **kw)
+    sharded = make_gmres(spc.fine, spc.apply, allreduce=dm.all_reduce, **kw)
+    r1 = one(G0, G0)
+    graphs.STATS.reset()
+    reset_kernel_launches()
+    rs = sharded(b, b)  # the path: the sharded GMRES step, captured
+    launched = kernel_launches()
+    snap = graphs.STATS.snapshot()
+    warm = {}
+    for name, solve, x0 in (("one device", one, G0), ("sharded", sharded, b)):
+        reset_kernel_launches()
+        solve(x0, x0)
+        warm[name] = kernel_launches()["K2"]
+    graphs.CAPTURE = False
+    graphs.STATS.reset()
+    try:
+        eager = make_gmres(spc.fine, spc.apply, allreduce=dm.all_reduce, **kw)
+        re = eager(b, b)
+    finally:
+        graphs.CAPTURE = True
+    eager_replays = graphs.STATS.replays
+    rel1 = ((spc.unshard(rs.x) - r1.x).abs().max() / r1.x.abs().max()).item()
+    rel_e = ((rs.x - re.x).abs().max() / re.x.abs().max()).item()
+    print(f"[24 GMRES] Kershaw {NV}^3 field-major GMRES + grid V-cycle: sharded over one NCCL "
+          f"rank {rs.iters} iterations (converged {rs.converged}; {snap['captures']} graphs, "
+          f"{snap['replays']} replays), one device {r1.iters}, r05 {GRIDMG_ITERS_NV}; "
+          f"max|x - x_1dev|/max|x_1dev| {rel1:.3e}; K2 launches of a warm step: sharded "
+          f"{warm['sharded']}, one device {warm['one device']}; capture off {re.iters} "
+          f"iterations, max|dx|/max|x| {rel_e:.3e} (tol 1e-6); {smi}", flush=True)
+    check(rs.converged and rs.iters == r1.iters == GRIDMG_ITERS_NV,
+          f"sharded gridmg {rs.iters} iterations, one device {r1.iters}")
+    check(warm["sharded"] == warm["one device"] > 0, f"K2 launches per step {warm}")
+    check(snap["replays"] > 0 and eager_replays == 0 and re.iters == rs.iters and rel_e <= 1e-6,
+          f"captured {rs.iters} ({snap}) against capture off {re.iters} ({eager_replays} "
+          f"replays), {rel_e:.3e}")
+    for s in (one, sharded, eager):
+        s.release()  # before the group closes: NCCL waits for graphs that hold it
+
+    text = io.StringIO()
+    with contextlib.redirect_stdout(text):
+        rc = bench_suite.dist_worker(NV, chains=(1, 3),
+                                     log=lambda msg: print(f"[24] {msg}", file=sys.stderr))
+    rec = json.loads(text.getvalue().strip().splitlines()[-1])
+    print(f"[24 bench_suite.py --dist-worker {NV}, world size 1, chains of 1 and 3] "
+          f"{json.dumps(rec)}", flush=True)
+    check(rc == 0 and not rec.get("gate_failures"), f"the distributed row at {NV}^3: exit "
+          f"{rc}, {rec.get('gate_failures')}")
+    print(f"[24] K1, K2, K3 launches on the sharded GMRES step: {launched}; phase 24 took "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(launched["K2"] > 0 and not launched["K1"] and not launched["K3"],
+          f"the sharded gridmg step launched {launched}")
     return launched
 
 
@@ -2612,8 +2733,9 @@ def main() -> int:
     lap("18")
     k2["launches_by_path"].update(mesh_file_phases(dev, smi, mesh64, path_d))
     lap("19")
-    d_launches = distributed_phases(dev, smi, mesh64, path_d["state_c"])
-    lap("20")
+    d_launches, v_launches = distributed_phases(
+        dev, smi, mesh64, path_d["state_c"], inside=lambda dm: sharded_vcycle_phase(dev, smi, dm))
+    lap("20 and 24")
     device_loop_phase(smi)
     captured_steps_phase(smi)
     lap("21 and 22")
@@ -2622,6 +2744,7 @@ def main() -> int:
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
     d_path = "20 the sharded drivers (parallel/)"
     b_path = "23 bench.py flagship and bench_suite.py rows at 16^3"
+    v_path = f"24 sharded grid V-cycle GMRES step (parallel/vcycle_dist.py), Kershaw {NV}^3"
 
     print(json.dumps({"kernels": [{
         "name": "fused_circulant_solve (K1)",
@@ -2632,7 +2755,7 @@ def main() -> int:
         "masked_launches": masked_k1,
         "launches_by_path": {"B GMRES + K1 preconditioner 100^3, 3 steps": launches,
                              j_path: j_launches["K1"], d_path: d_launches["K1"],
-                             b_path: b_launches["K1"]},
+                             b_path: b_launches["K1"], v_path: v_launches["K1"]},
         "max_abs_err": max_abs_err,
         "ms": k1_graph["K1 (fused CUDA)"],
         "plain_ms": k1_graph["K1 plain (torch.matmul)"],
@@ -2648,14 +2771,16 @@ def main() -> int:
         "source": "circulantpreconditioner_tpu_torch/csrc/plane_stencil.cu",
         "replaces": "circulantpreconditioner_tpu/ops/pallas_stencil.py:69",
         **k2, "launches_by_path": {**k2["launches_by_path"], j_path: j_launches["K2"],
-                                   d_path: d_launches["K2"], b_path: b_launches["K2"]},
+                                   d_path: d_launches["K2"], b_path: b_launches["K2"],
+                                   v_path: v_launches["K2"]},
     }, {
         "name": "complex_matmul (K3)",
         "route": "cuda",
         "source": "circulantpreconditioner_tpu_torch/csrc/complex_matmul.cu",
         "replaces": "circulantpreconditioner_tpu/ops/pallas_kernels.py:33",
         **k3, "launches_by_path": {**k3["launches_by_path"], j_path: j_launches["K3"],
-                                   d_path: d_launches["K3"], b_path: b_launches["K3"]},
+                                   d_path: d_launches["K3"], b_path: b_launches["K3"],
+                                   v_path: v_launches["K3"]},
     }]}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(f"card: {smi}")

@@ -1,9 +1,9 @@
 """The port's benchmark suite: the counterpart of the repository's
 `bench_suite.py` (the JAX package's), its 14 single-device rows on one
-NVIDIA GPU.
+NVIDIA GPU and its two distributed rows on P GPUs of one host.
 
     python -m circulantpreconditioner_tpu_torch.bench_suite [out.json] [row1,row2,...]
-        [--scipy-baselines]
+        [--scipy-baselines] [--dist-ranks 1,4]
 
 Prints one JSON line per row. With `out.json` it writes the rows there under
 a header (date, device, methodology); with a subset of rows the results
@@ -26,9 +26,21 @@ GMRES and CG) at the row's full size in float32 on the card:
 | wave_ilu | wave_ilu0_step_ms_32cubed | GMRES + ILU(0) (left, maxiter 100) |
 | pc_iterations | wave_implicit_gmres_iters_by_pc | Kershaw 8³, 16³, 24³ × 7 preconditioners |
 | ladder_top | wave_implicit_step_ms_kershawtet50 | Kershaw-tet 50³: supercell SpMV, explicit, GMRES + grid V-cycle |
+| scale_distributed, 48 | wave_implicit_dist_kershaw{32,48}_{P}dev | row-sharded GMRES over P ranks: circulant2l; the sharded grid V-cycle (K2) |
 
-The JAX suite's four fixture rows read meshes that are absent, and its two
-distributed rows run on virtual CPU devices: neither is here.
+The JAX suite's four fixture rows read meshes that are absent: they are not
+here. Its two distributed rows ran `_scale_worker` on 8 virtual CPU devices
+in a subprocess; here each runs `torchrun --nproc-per-node P -m
+circulantpreconditioner_tpu_torch.bench_suite --dist-worker N` (`dist_command`:
+one process per card, NCCL) for each P of --dist-ranks (default 1, and 4
+where four cards are visible), before the suite makes a CUDA context of its
+own. Each rank builds the JAX row's Kershaw N³ problem and solves it twice
+(`dist_case`): the JAX row's circulant2l case (HaloELLMatrix,
+DistributedBlockCirculantPC + sharded_pbjacobi) and the grid V-cycle on
+z-slabs (parallel/vcycle_dist.py, the counterpart of the JAX row's GSPMD
+gridmg), K2 on each rank's slab; rank 0 also solves the latter on one card.
+Rank 0 prints the record, under the JAX record's keys, with the port's P,
+cards and launches beside.
 
 Timing (bench.py, `paired_chain_time`): differenced pairs of chains on the
 card, accepted only where two pairs agree within 10 %, failing otherwise and
@@ -38,14 +50,19 @@ or a graph that holds a block of calls); the Krylov rows chain K re-solves
 of the first step (each link feeds U0 plus a vanishing multiple of the last
 solution, as the JAX suite's t=0 chains do: the work per link does not
 decay), driven by the host and timed by its clock, with the device time per
-step from torch.profiler beside. The SpMV rows and the explicit step carry
+step from torch.profiler beside (on the distributed rows, every chain begun
+after a barrier of all the ranks and timed as its slowest rank's, rank 0's
+device time beside). The SpMV rows and the explicit step carry
 `bound_ms`: the bytes of D's coefficients, its input and its output over the
 memory rate (the operations of 2 per stored entry are far below it).
 
 Gates: a converged count must lie within ±1 of the JAX suite's TPU run
 (results/bench_suite_r05.json), the band path J uses: gridmg 25, 33 and 38,
 the alternatives at 16³ (28, 43, 62), tet50 41, transport's first step 3,
-diffusion CG 3, and every entry of the preconditioner table. A row that
+diffusion CG 3, and every entry of the preconditioner table; the distributed
+rows' circulant2l 99 and 111 (the virtual devices' counts), their sharded
+gridmg count within one of the one-card count of the same call, and at P =
+1 the same K2 launches per step as one card. A row that
 misses a gate or raises is printed with its failure; the suite goes on, and
 exits 1 at the end. The SciPy GMRES baselines of the wave rows time the
 host's CPU, not the port (91.5 s per step at 64³ and 236 s at tet50 in
@@ -59,6 +76,7 @@ import datetime
 import functools
 import json
 import os
+import subprocess
 import sys
 import time
 import traceback
@@ -233,6 +251,7 @@ class Suite:
     scipy_baselines: bool = False
     log: Callable = print
     meshes: dict = field(default_factory=dict)
+    dist_ranks: tuple[int, ...] = (1,)  # the distributed rows' world sizes
 
     def kershaw(self, n: int):
         from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
@@ -242,9 +261,10 @@ class Suite:
             self.meshes[n] = kershaw_mesh(B01, (n,) * 3)
         return self.meshes[n]
 
-    def krylov_time(self, case: KrylovCase, K1: int, K2: int) -> dict:
+    def krylov_time(self, case: KrylovCase, K1: int, K2: int, chain=host_chain) -> dict:
         """The paired t=0 chain of a Krylov case, with the K1 to K3 launches
-        and the device time per step."""
+        and the device time per step; `chain(link, x0)` makes the chain
+        (dist_host_chain across the ranks of a distributed row)."""
         link = functools.partial(t0_link, case.step, case.U0)
         steps = [0]
 
@@ -254,7 +274,7 @@ class Suite:
 
         link(case.U0)  # warm: the solver's graphs exist after the first step
         before = kernel_counts()
-        t = paired_chain_time(host_chain(counted, case.U0), K1, K2, device=self.device)
+        t = paired_chain_time(chain(counted, case.U0), K1, K2, device=self.device)
         launches = per_call(before, steps[0])
         return {"ms": t.per_s * 1e3, "chain": t.as_dict(), "launches_per_step": launches,
                 "device_ms_per_step": device_ms(lambda: link(case.U0), calls=2)}
@@ -785,11 +805,279 @@ def bench_ladder_top(s: Suite, n: int = 50) -> dict:
     return gate_record(rec)
 
 
+# --- the two distributed rows: torchrun workers --------------------------------
+
+# circulant2l's GMRES iterations in the JAX suite's distributed records
+# (results/bench_suite_r05.json wave_implicit_dist_kershaw{32,48}_8dev: 8
+# virtual CPU devices, not the TPU), held within GATE_BAND
+R05_DIST_ITERS = {32: 99, 48: 111}
+DIST_CHAINS = (2, 6)  # K1, K2 re-solves of the first step per chain
+
+
+def dist_command(n: int, P: int) -> list[str]:
+    """The command of a distributed row at P ranks: torchrun (as `python -m
+    torch.distributed.run`) starting P workers of this module, one per card."""
+    return [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node",
+            str(P), "-m", "circulantpreconditioner_tpu_torch.bench_suite", "--dist-worker", str(n)]
+
+
+def default_dist_ranks() -> tuple[int, ...]:
+    """P = 1, and 4 where four cards are visible (torch.cuda.device_count
+    creates no CUDA context: the workers still find the cards free)."""
+    return (1, 4) if torch.cuda.device_count() >= 4 else (1,)
+
+
+@dataclass
+class DistCase:
+    """The two solves of a distributed row on this rank (no timing): the
+    first step of each, its step function and start. `circ`: the JAX row's
+    circulant2l case, row-sharded cell-major; `grid`: the sharded grid V-cycle
+    (parallel/vcycle_dist.py), field-major z-slabs with K2 as the fine level;
+    `grid_1dev`: rank 0's one-device GridVCyclePC solve of the same step
+    (None on the other ranks)."""
+
+    circ: KrylovCase
+    grid: KrylovCase
+    grid_1dev: KrylovCase | None
+    extra: dict = field(default_factory=dict)
+
+    def release(self) -> None:
+        """Drop the solvers' graphs: a process group must outlive the graphs
+        that hold its collectives."""
+        for s in self.extra.pop("solvers", ()):
+            s.release()
+
+
+def dist_case(n: int, *, mesh, device, dtype=F32) -> DistCase:
+    """A distributed row's problem on this rank of `mesh` (a RankMesh): the
+    Kershaw n³ wave system at cfl 1e3/3 (eps 0.3) as the JAX suite's
+    `_scale_worker` builds it, GMRES right, rtol atol 1e-5, maxiter 1000,
+    its reductions all-reduced over the ranks: (1) HaloELLMatrix +
+    DistributedBlockCirculantPC + sharded_pbjacobi, additive (circulant2l);
+    (2) the sharded grid V-cycle over the K2 slab operator (gridmg). Rank 0
+    also solves (2) on one device (bench row wave_implicit's case)."""
+    import torch.distributed as dist
+
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+    from circulantpreconditioner_tpu_torch.parallel import (
+        DistributedBlockCirculantPC,
+        HaloELLMatrix,
+        SlabGridVCyclePC,
+        sharded_pbjacobi,
+    )
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+    from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+    from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
+
+    fv_mesh = kershaw_mesh(B01, (n,) * 3)
+    model = WaveSystem(fv_mesh, cfl=1e3 / 3, device=device, dtype=dtype)
+    D = model.divergence
+    b = D.block_size
+    kw = dict(rtol=1e-5, atol=1e-5, maxiter=1000, side="right")
+    Ah = HaloELLMatrix(D.to_csr(dtype), mesh, row_multiple=b)
+    coarse = DistributedBlockCirculantPC(fv_mesh, model.dt, model.c0, mesh, Ah.n_padded,
+                                         dtype=dtype)
+    Dinv = np.linalg.inv(D.block_diagonal().cpu().numpy().astype(np.float64)
+                         + np.eye(b)[None, :, :])
+    M = pcs.additive(coarse.apply, sharded_pbjacobi(Dinv, Ah.n_padded, mesh, dtype=dtype))
+    circ = make_gmres(lambda v: v + Ah.matvec(v), M, allreduce=mesh.all_reduce, **kw)
+    U0 = Ah.shard_vector(model.initial_state())
+
+    pc = GridVCyclePC.from_grid_model(D, fv_mesh.topology_shape, cells_per_site=1,
+                                      A0_apply=model.implicit_matvec(),
+                                      A0_apply_fm=model.implicit_matvec_fm(), shift=1.0,
+                                      dtype=dtype)
+    spc = SlabGridVCyclePC.from_wave_model(model, mesh, pc=pc)
+    grid = make_gmres(spc.fine, spc.apply, allreduce=mesh.all_reduce, **kw)
+    G_full = model.pack_fm(model.initial_state()).reshape(-1)
+    G0 = spc.shard(G_full)
+    solvers = [circ, grid]
+    cases = []
+    for solver, x0 in ((circ, U0), (grid, G0)):
+        res = solver(x0, x0)
+        cases.append(KrylovCase(lambda U, s=solver: (s(U, U).x,), x0, int(res.iters),
+                                bool(res.converged), res.x))
+    grid_1dev = None
+    if dist.get_rank() == 0:
+        one = make_gmres(model.implicit_matvec_fm(), pc.apply_fm, **kw)
+        solvers.append(one)
+        res = one(G_full, G_full)
+        grid_1dev = KrylovCase(lambda U: (one(U, U).x,), G_full, int(res.iters),
+                               bool(res.converged), res.x)
+    return DistCase(*cases, grid_1dev, {
+        "unknowns": int(D.shape[0]), "pc_halo_fwd": int(coarse.halo_fwd),
+        "pc_halo_bak": int(coarse.halo_bak), "spmv_halo": int(Ah.halo),
+        "gridmg_levels": spc.describe(), "unshard_circ": Ah.unshard_vector,
+        "unshard_grid": spc.unshard, "solvers": solvers})
+
+
+def dist_host_chain(link: Callable[[torch.Tensor], torch.Tensor], x0: torch.Tensor,
+                    mesh) -> Callable[[int], float]:
+    """host_chain on every rank: each chain begun after a barrier of all the
+    ranks, its seconds the largest of any rank's (an all-reduce MAX), so every
+    rank sees the same pairs and accepts the same one."""
+    import torch.distributed as dist
+
+    def chain(K: int) -> float:
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v = x0
+        for _ in range(K):
+            v = link(v)
+        torch.cuda.synchronize()
+        t = torch.tensor([time.perf_counter() - t0], dtype=torch.float64, device=mesh.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX)
+        return float(t.item())
+
+    return chain
+
+
+def dist_time(case: KrylovCase, mesh, chains=DIST_CHAINS) -> dict:
+    """Suite.krylov_time of a sharded Krylov case, its chains across the
+    ranks (this rank's launches and device time)."""
+    return Suite(mesh.device).krylov_time(case, *chains,
+                                          chain=functools.partial(dist_host_chain, mesh=mesh))
+
+
+def one_device_launches(case: KrylovCase) -> dict[str, float]:
+    """K1 to K3 launches of one warm re-solve of a one-device case's first step."""
+    case.step(case.U0)
+    before = kernel_counts()
+    case.step(case.U0)
+    return per_call(before, 1)
+
+
+def dist_record(n: int, P: int, case: DistCase, t_circ: dict, t_grid: dict,
+                grid_1dev_launches: dict | None, cards: dict) -> dict:
+    """A distributed row's record: the JAX record's keys (by metric name
+    wave_implicit_dist_kershaw{n}_{P}dev), the port's fields beside, and the
+    gates: circulant2l's count within GATE_BAND of r05's, the sharded gridmg
+    count within one of the one-device count, and at P = 1 the same K2
+    launches per step as one device."""
+    rec = {"metric": f"wave_implicit_dist_kershaw{n}_{P}dev", "value": t_circ["ms"],
+           "unit": "ms/step", "gmres_iters": case.circ.iters, "converged": case.circ.converged,
+           "unknowns": case.extra["unknowns"], "pc": "circulant2l (halo all_to_all)",
+           "pc_halo_fwd": case.extra["pc_halo_fwd"], "pc_halo_bak": case.extra["pc_halo_bak"],
+           "spmv_halo": case.extra["spmv_halo"], "device": f"{cards['name']} x{P}",
+           "gridmg_gspmd_iters": case.grid.iters, "gridmg_gspmd_converged": case.grid.converged,
+           "gridmg_gspmd_ms_per_step": t_grid["ms"],
+           "note": "t=0 solve per step, chained re-solves begun after a barrier of every rank, "
+                   "each chain the slowest rank's; gridmg_gspmd: the sharded grid V-cycle "
+                   "(parallel/vcycle_dist.py: z-slabs, the coarse grid gathered where a slab "
+                   "turns odd), field-major GMRES, K2 on each rank's slab",
+           "ranks": P, "cards": cards["nvidia_smi"],
+           "device_ms_per_step": t_circ["device_ms_per_step"],
+           "launches_per_step": t_circ["launches_per_step"], "chain": t_circ["chain"],
+           "gridmg_levels": case.extra["gridmg_levels"],
+           "gridmg_device_ms_per_step": t_grid["device_ms_per_step"],
+           "gridmg_launches_per_step": t_grid["launches_per_step"],
+           "gridmg_chain": t_grid["chain"]}
+    failures = []
+    want = R05_DIST_ITERS.get(n)
+    if want is not None:
+        rec["r05"] = {"gmres_iters": want}
+        if not case.circ.converged:
+            failures.append("gmres_iters: not converged")
+        elif abs(case.circ.iters - want) > GATE_BAND:
+            failures.append(f"gmres_iters {case.circ.iters}, outside {want} ± {GATE_BAND} "
+                            "(results/bench_suite_r05.json, 8 virtual CPU devices)")
+    one = case.grid_1dev
+    if one is not None:
+        rec.update(gridmg_one_device_iters=one.iters, gridmg_one_device_converged=one.converged,
+                   gridmg_one_device_launches_per_step=grid_1dev_launches)
+        if not (case.grid.converged and one.converged):
+            failures.append(f"gridmg converged {case.grid.converged}, one device "
+                            f"{one.converged}")
+        elif abs(case.grid.iters - one.iters) > 1:
+            failures.append(f"gridmg_gspmd_iters {case.grid.iters}, one device {one.iters} "
+                            "(± 1)")
+        if P == 1 and t_grid["launches_per_step"]["K2"] != grid_1dev_launches["K2"]:
+            failures.append(f"gridmg K2 launches per step {t_grid['launches_per_step']['K2']}, "
+                            f"one device {grid_1dev_launches['K2']}")
+    if failures:
+        rec["gate_failures"] = failures
+    return rec
+
+
+def dist_cards(device: torch.device) -> dict:
+    """The rank's card by name, and nvidia-smi's name and power limit of
+    every card of the host."""
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader"], capture_output=True, text=True,
+                             timeout=60).stdout.strip().splitlines()
+    except (OSError, subprocess.SubprocessError):
+        smi = []
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else str(device)
+    return {"name": name, "nvidia_smi": smi or ["not read"]}
+
+
+def dist_worker(n: int, device: str = "cuda", chains=DIST_CHAINS, log=None) -> int:
+    """One rank of a distributed row, under torchrun (or a process group the
+    caller opened): builds and solves `dist_case`, times both solves, and on
+    rank 0 prints the record as the last line of its stdout. Returns 1 when a
+    gate fails (every rank computes the same counts), else 0."""
+    import torch.distributed as dist
+
+    from circulantpreconditioner_tpu_torch.parallel import device_mesh, rank_world
+
+    with rank_world(None, device):
+        dm = device_mesh()
+        P, rank0 = dist.get_world_size(), dist.get_rank() == 0
+        say = (log or (lambda msg: print(msg, file=sys.stderr, flush=True))) if rank0 \
+            else (lambda msg: None)
+        say(f"bench: distributed kershaw {n}^3 over {P} rank(s) ...")
+        case = dist_case(n, mesh=dm, device=dm.device)
+        say(f"bench: circulant2l {case.circ.iters} iterations, gridmg sharded "
+            f"{case.grid.iters} ({case.extra['gridmg_levels']})"
+            + (f", one device {case.grid_1dev.iters}" if case.grid_1dev else ""))
+        try:
+            t_circ = dist_time(case.circ, dm, chains)
+            t_grid = dist_time(case.grid, dm, chains)
+            l1 = one_device_launches(case.grid_1dev) if case.grid_1dev else None
+            rec = dist_record(n, P, case, t_circ, t_grid, l1, dist_cards(dm.device))
+            if rank0:
+                print(json.dumps(rec), flush=True)
+            dist.barrier()  # rank 0's one-device solves are done
+        finally:
+            case.release()
+    return 1 if rec.get("gate_failures") else 0
+
+
+def bench_scale_distributed(s: Suite, n: int = 32) -> list[dict]:
+    """The row at each P of s.dist_ranks: torchrun's workers (dist_command),
+    started from this process, rank 0's record read from their stdout."""
+    from circulantpreconditioner_tpu_torch.native.build import build
+
+    build()  # once, here, rather than in every worker (nvcc makes no CUDA context)
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(p for p in (pkg_root, env.get("PYTHONPATH")) if p)
+    recs = []
+    for P in s.dist_ranks:
+        cmd = dist_command(n, P)
+        s.log(f"bench: {' '.join(cmd[1:])}")
+        out = subprocess.run(cmd, stdout=subprocess.PIPE, text=True, env=env, timeout=3000)
+        lines = out.stdout.strip().splitlines()
+        try:
+            rec = json.loads(lines[-1])
+        except (IndexError, json.JSONDecodeError):
+            raise RuntimeError(f"the P = {P} workers exited {out.returncode} with no record; "
+                               f"stdout ends {out.stdout[-400:]!r}") from None
+        if out.returncode and not rec.get("gate_failures"):
+            raise RuntimeError(f"the P = {P} workers exited {out.returncode}")
+        recs.append(rec)
+    return recs
+
+
 @dataclass
 class Row:
     metric: str
     unit: str
-    run: Callable[[Suite], dict]
+    run: Callable[[Suite], dict | list[dict]]
+    per_ranks: bool = False  # one record per P, named metric + f"_{P}dev"
 
 
 # the issue order of the port: the flagship first, path J's rung last
@@ -817,6 +1105,20 @@ ROWS = {
     "ladder_top": Row("wave_implicit_step_ms_kershawtet50", "ms/step", bench_ladder_top),
 }
 
+# the JAX suite's distributed rows (wave_implicit_dist_kershaw{32,48}_8dev),
+# one record per world size P; the suite runs them first, before it touches
+# the card itself
+DIST_ROWS = {
+    "scale_distributed": Row("wave_implicit_dist_kershaw32", "ms/step",
+                             bench_scale_distributed, per_ranks=True),
+    "scale_distributed48": Row("wave_implicit_dist_kershaw48", "ms/step",
+                               lambda s: bench_scale_distributed(s, 48), per_ranks=True),
+}
+
+
+def _row(name: str) -> Row:
+    return ROWS[name] if name in ROWS else DIST_ROWS[name]
+
 
 def run_rows(s: Suite, names) -> tuple[list[dict], list[str]]:
     """Each named row, its record printed as one JSON line; a row that raises
@@ -824,21 +1126,25 @@ def run_rows(s: Suite, names) -> tuple[list[dict], list[str]]:
     runs. Returns the records and the failed rows' names."""
     results, failed = [], []
     for name in names:
-        row = ROWS[name]
+        row = _row(name)
         t0 = time.perf_counter()
         try:
-            rec = row.run(s)
+            out = row.run(s)
         except Exception as e:  # the suite's boundary: record the row's failure, go on
             traceback.print_exc()
-            rec = {"metric": f"{name}_ERROR", "error": f"{type(e).__name__}: {e}"[:500]}
-        rec["seconds"] = time.perf_counter() - t0
-        if "error" in rec or rec.get("gate_failures"):
-            failed.append(name)
-            s.log(f"bench: row {name} FAILED: {rec.get('error') or rec['gate_failures']}")
-        elif (rec["metric"], rec["unit"]) != (row.metric, row.unit):
-            raise AssertionError(f"row {name} produced {rec['metric']} in {rec['unit']}")
-        print(json.dumps(rec), flush=True)
-        results.append(rec)
+            out = {"metric": f"{name}_ERROR", "error": f"{type(e).__name__}: {e}"[:500]}
+        for rec in out if isinstance(out, list) else [out]:
+            rec["seconds"] = time.perf_counter() - t0
+            metric_ok = rec.get("metric") == row.metric or (
+                row.per_ranks and rec.get("metric", "").startswith(row.metric + "_"))
+            if "error" in rec or rec.get("gate_failures"):
+                if name not in failed:
+                    failed.append(name)
+                s.log(f"bench: row {name} FAILED: {rec.get('error') or rec['gate_failures']}")
+            elif not metric_ok or rec["unit"] != row.unit:
+                raise AssertionError(f"row {name} produced {rec['metric']} in {rec['unit']}")
+            print(json.dumps(rec), flush=True)
+            results.append(rec)
     return results, failed
 
 
@@ -854,7 +1160,7 @@ def write_results(out_path: str, results: list[dict], only: list[str] | None,
             old = json.load(f)
         merged = {r["metric"]: r for r in old.get("results", [])}
         for name in failed:
-            for k in [k for k in merged if k.startswith(ROWS[name].metric)]:
+            for k in [k for k in merged if k.startswith(_row(name).metric)]:
                 del merged[k]
         for name in only:
             if name not in failed:
@@ -870,27 +1176,40 @@ def write_results(out_path: str, results: list[dict], only: list[str] | None,
 def main(argv: list[str] | None = None) -> int:
     import argparse
 
+    names = list(DIST_ROWS) + list(ROWS)
     p = argparse.ArgumentParser(description="The port's benchmark suite (see the module "
                                             "docstring).")
     p.add_argument("out", nargs="?", help="JSON file for the results")
     p.add_argument("rows", nargs="?", help="comma-separated rows (default: all), of "
-                                           + ", ".join(ROWS))
+                                           + ", ".join(names))
     p.add_argument("--scipy-baselines", action="store_true",
                    help="time the wave rows' SciPy GMRES baselines on the host CPU (minutes)")
+    p.add_argument("--dist-ranks", help="comma-separated world sizes of the distributed rows "
+                                        "(default: 1, and 4 where four cards are visible)")
+    p.add_argument("--dist-worker", type=int, metavar="N",
+                   help="run as one rank of a distributed row at Kershaw N^3 (under torchrun)")
     args = p.parse_args(argv)
+    if args.dist_worker is not None:
+        return dist_worker(args.dist_worker)
     only = args.rows.split(",") if args.rows else None
-    unknown = sorted(set(only or ()) - set(ROWS))
+    unknown = sorted(set(only or ()) - set(names))
     if unknown:
-        p.error(f"unknown rows {unknown}; the rows are {list(ROWS)}")
+        p.error(f"unknown rows {unknown}; the rows are {names}")
     if not torch.cuda.is_available():
         print("bench_suite: torch.cuda.is_available() is False; the suite runs on a GPU only",
               file=sys.stderr)
         return 1
+    ranks = (tuple(int(v) for v in args.dist_ranks.split(",")) if args.dist_ranks
+             else default_dist_ranks())
     s = Suite(require_cuda("cuda"), scipy_baselines=args.scipy_baselines,
-              log=lambda msg: print(msg, file=sys.stderr, flush=True))
+              log=lambda msg: print(msg, file=sys.stderr, flush=True), dist_ranks=ranks)
+    # the distributed rows' workers start before this process makes a CUDA
+    # context (device_info's first call does)
+    results, failed = run_rows(s, [n for n in DIST_ROWS if not only or n in only])
     info = device_info()
     s.log(f"bench_suite: {info['nvidia_smi']} | torch {info['torch']} cuda {info['cuda']}")
-    results, failed = run_rows(s, [n for n in ROWS if not only or n in only])
+    more, more_failed = run_rows(s, [n for n in ROWS if not only or n in only])
+    results, failed = results + more, failed + more_failed
     if args.out:
         write_results(args.out, results, only, failed,
                       {k: info[k] for k in ("name", "power_limit", "count", "torch", "cuda")})

@@ -28,3 +28,7 @@ from circulantpreconditioner_tpu_torch.parallel.pc_dist import (  # noqa: F401
     SlabBlockCirculantSolver,
     sharded_pbjacobi,
 )
+from circulantpreconditioner_tpu_torch.parallel.vcycle_dist import (  # noqa: F401
+    SlabFmStencil,
+    SlabGridVCyclePC,
+)

@@ -100,6 +100,7 @@ class _GridLevel:
     cshape_xyz: tuple      # coarse grid (cx, cy, cz)
     b: int
     A_fm: Callable | None = None  # field-major flat operator apply
+    stencil: object | None = None  # a coarse level's VaryingStencilOperator (None: the fine level)
 
 
 def _grid_smooth(L: _GridLevel, omega: float, r: torch.Tensor) -> torch.Tensor:
@@ -155,7 +156,12 @@ def _grid_prolong_fm(L: _GridLevel, zc: torch.Tensor) -> torch.Tensor:
 
 
 def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
+    """One V-cycle from level l. bot_inv: the dense bottom inverse, or a
+    callable that takes the bottom level's place (parallel/vcycle_dist.py:
+    the gather to the replicated levels)."""
     if l == len(levels):
+        if callable(bot_inv):
+            return bot_inv(r)
         if fm:
             x = bot_inv @ r.reshape(bot_b, -1).T.reshape(-1)
             return x.reshape(-1, bot_b).T.reshape(-1)
@@ -314,7 +320,7 @@ class GridVCyclePC(AggregationVCyclePC):
                 A_fm = op_l.matvec_fm_flat if op_l.layout == "flat" else None
             levels.append(_GridLevel(A=A_cm, Dinv=_block_diag_inv(A_l, b, device, dtype),
                                      cnt_inv=cnt_inv, shape_xyz=shape, cshape_xyz=cshape,
-                                     b=b, A_fm=A_fm))
+                                     b=b, A_fm=A_fm, stencil=None if first else op_l))
             A_l = _galerkin_map(A_l, b, site, n_c)
             shape = cshape
             first = False

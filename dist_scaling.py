@@ -14,9 +14,16 @@ drivers, `wave_explicit --shard slab` (20 steps) and `wave_implicit --shard
 rows --pc circulant2l` (2 steps) at Kershaw 64³ and `transport_fft --shard
 slab` at 128³ (5 steps), each captured (CUDA graphs, the collectives inside)
 and with capture off: ms per step and GMRES iterations side by side (the
-same iterations, states within 1e-6). The last line is one JSON object of these
-figures with the card's name and power limit. Run it at P = 1 and at P = 4
-on the same host to compare them. Exits non-zero when a check fails.
+same iterations, states within 1e-6); and the grid V-cycle on z-slabs
+(parallel/vcycle_dist.py, the counterpart of the JAX package's GSPMD-sharded
+GridVCyclePC, its __graft_entry__.py stage (e)) at Kershaw 64³: its apply
+by CUDA events beside the one-device GridVCyclePC.apply_fm (checked, 1e-5
+relative), and two implicit steps of field-major GMRES right-preconditioned
+by it (K2 on each rank's slab), captured and with capture off, beside the
+same two steps on one card (path D's 38 and 28 iterations; within one). The
+last line is one JSON object of these figures with the card's name and
+power limit. Run it at P = 1 and at P = 4 on the same host to compare them.
+Exits non-zero when a check fails.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ from __future__ import annotations
 import json
 import subprocess
 import sys
+import time
 
 import numpy as np
 import torch
@@ -70,11 +78,14 @@ def main() -> int:
         PencilCirculantSolver,
         ShardedELLMatrix,
         SlabCirculantSolver,
+        SlabGridVCyclePC,
         SlabStencilOperator,
         device_mesh,
         device_mesh_2d,
         rank_world,
     )
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+    from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
     from circulantpreconditioner_tpu_torch.solvers.circulant_pc import BlockCirculantProjectionPC
     from circulantpreconditioner_tpu_torch.utils import graphs
 
@@ -181,6 +192,72 @@ def main() -> int:
                 f"median {np.median(c[1:]):.4f}; capture off first {e[0]:.3f}, then median "
                 f"{np.median(e[1:]):.4f}; iterations {its[True]} (capture off {its[False]}); "
                 f"states {rel:.2e} apart", flush=True)
+
+        # the grid V-cycle on z-slabs at NW^3, and two implicit steps of
+        # field-major GMRES with it (path D's solve), against one card
+        model = WaveSystem(mesh, cfl=1e3 / 3, **f32)
+        pc = GridVCyclePC.from_grid_model(model.divergence, mesh.topology_shape,
+                                          A0_apply=model.implicit_matvec(),
+                                          A0_apply_fm=model.implicit_matvec_fm(), shift=1.0,
+                                          dtype=torch.float32)
+        spc = SlabGridVCyclePC.from_wave_model(model, dm, pc=pc)
+        r = torch.as_tensor(np.random.default_rng(1).random(model.divergence.shape[0]), **f32)
+        rs = spc.shard(r)
+        z1 = pc.apply_fm(r)
+        rel = ((spc.unshard(spc.apply(rs)) - z1).abs().max() / z1.abs().max()).item()
+        check(rel <= 1e-5, f"the sharded V-cycle off the one-device apply: {rel:.3e}")
+        name = f"SlabGridVCyclePC {NW}^3"
+        out[f"{name} ms"] = chain_ms(lambda: spc.apply(rs))
+        out[f"one-device GridVCyclePC.apply_fm {NW}^3 ms"] = chain_ms(lambda: pc.apply_fm(r))
+        say(f"[P={P}] {name} ({spc.describe()}): {out[f'{name} ms']:.4f} ms/apply (one device "
+            f"{out[f'one-device GridVCyclePC.apply_fm {NW}^3 ms']:.4f}), max|dz|/max|z| "
+            f"{rel:.2e}", flush=True)
+        kw = dict(rtol=1e-5, atol=1e-5, maxiter=1000, side="right")
+        G0 = model.pack_fm(model.initial_state()).reshape(-1)
+        one = make_gmres(model.implicit_matvec_fm(), pc.apply_fm, **kw)
+        its1, g = [], G0
+        for _ in range(2):
+            res1 = one(g, g)
+            its1.append(res1.iters)
+            g = res1.x
+        one.release()
+        runs = {}
+        for capture in (True, False):
+            graphs.CAPTURE = capture  # read when the solver's graphs are made, at its first solve
+            graphs.STATS.reset()
+            try:
+                solver = make_gmres(spc.fine, spc.apply, allreduce=dm.all_reduce, **kw)
+                u, its, ms = spc.shard(G0), [], []
+                for _ in range(2):
+                    dist.barrier()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = solver(u, u)
+                    torch.cuda.synchronize()
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                    its.append(res.iters)
+                    check(res.converged, f"sharded gridmg did not converge (capture {capture})")
+                    u = res.x
+            finally:
+                graphs.CAPTURE = True
+            solver.release()  # a group outlives the graphs that hold its collectives
+            check((graphs.STATS.replays > 0) == capture,
+                  f"sharded gridmg: {graphs.STATS.replays} graph replays, capture {capture}")
+            runs[capture] = (its, ms, u)
+        rel = ((runs[True][2] - runs[False][2]).abs().max() / runs[False][2].abs().max()).item()
+        check(runs[True][0] == runs[False][0] and rel <= 1e-6,
+              f"sharded gridmg: captured {runs[True][0]} against {runs[False][0]}, states "
+              f"{rel:.3e} apart")
+        check(all(abs(a - c) <= 1 for a, c in zip(runs[True][0], its1)),
+              f"sharded gridmg iterations {runs[True][0]}, one card {its1}")
+        name = f"GMRES + SlabGridVCyclePC {NW}^3, 2 steps"
+        out[name] = {"ms/step captured": runs[True][1], "ms/step capture off": runs[False][1],
+                     "iterations": runs[True][0], "iterations one card": its1,
+                     "max|dU|/max|U|": rel, "levels": spc.describe()}
+        say(f"[P={P}] {name}: ms/step captured {[round(t, 3) for t in runs[True][1]]} (the "
+            f"first captures), capture off {[round(t, 3) for t in runs[False][1]]}; "
+            f"iterations {runs[True][0]} (one card {its1}, path D 38 and 28); states "
+            f"{rel:.2e} apart", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     if rank0:

@@ -425,3 +425,119 @@ def driver_runs(runs) -> list:
         its = [d["extras"][0] for d in res.diagnostics if d["extras"]]
         out.append((np_(res.state).reshape(-1), its, res.iterations, text.getvalue()))
     return out
+
+
+def vcycle_checks(cases, gmres_case) -> dict:
+    """The sharded grid V-cycle (parallel/vcycle_dist.py) on this world's
+    mesh. cases: (n, bottom_max, cfl) Kershaw n³ wave systems, each applied to
+    a residual from a fixed seed, with the one-device GridVCyclePC's apply_fm
+    beside it and the collectives of one apply; gmres_case: (n, bottom_max,
+    cfl, rtol), the row-sharded field-major GMRES right-preconditioned by it,
+    and the same solve on one device. Arrays are gathered, field-major."""
+    from circulantpreconditioner_tpu_torch.mesh.unstructured import kershaw_mesh
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+    from circulantpreconditioner_tpu_torch.parallel import SlabGridVCyclePC, device_mesh
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres
+
+    P = dist.get_world_size()
+    dm = device_mesh()
+    out = {}
+
+    def wave(n, cfl, shape=None):
+        km = kershaw_mesh(((0.0, 1.0),) * 3, shape or (n, n, n))
+        return WaveSystem(km, cfl=cfl, **F64)
+
+    for n, bottom_max, cfl in cases:
+        model = wave(n, cfl)
+        spc = SlabGridVCyclePC.from_wave_model(model, dm, bottom_max=bottom_max)
+        r_cm = np.random.default_rng(n).random(model.divergence.shape[0])
+        g = torch.as_tensor(r_cm).reshape(-1, 4).T.reshape(-1)
+        rs = spc.shard(g)
+        with count_collectives() as counts:
+            z = spc.apply(rs)
+        out[("apply", n)] = {"z": np_(spc.unshard(z)), "z_1dev": np_(spc.pc.apply_fm(g)),
+                             "collectives": dict(counts), "sharded_levels": len(spc.levels),
+                             "levels": len(spc.pc.levels), "gather_level": spc.gather_level,
+                             "gather_values": spc.gather_values, "describe": spc.describe()}
+
+    n, bottom_max, cfl, rtol = gmres_case
+    model = wave(n, cfl)
+    spc = SlabGridVCyclePC.from_wave_model(model, dm, bottom_max=bottom_max)
+    g0 = model.pack_fm(model.initial_state()).reshape(-1)
+    b = spc.shard(g0)
+    res = make_gmres(spc.fine, spc.apply, rtol=rtol, atol=rtol, maxiter=100, side="right",
+                     allreduce=dm.all_reduce)(b, b)
+    one = make_gmres(model.implicit_matvec_fm(), spc.pc.apply_fm, rtol=rtol, atol=rtol,
+                     maxiter=100, side="right")(g0, g0)
+    out["gmres"] = {"x": np_(spc.unshard(res.x)), "iters": res.iters,
+                    "converged": res.converged, "x_1dev": np_(one.x), "iters_1dev": one.iters}
+
+    # nz must divide over the ranks (nz = 2P + 1 does for P = 1 only)
+    try:
+        SlabGridVCyclePC.from_wave_model(wave(4, cfl, (4, 4, 2 * P + 1)), dm, bottom_max=8)
+        out["indivisible"] = None
+    except ValueError as e:
+        out["indivisible"] = str(e)
+    return out
+
+
+def bench_dist_checks(n: int) -> dict:
+    """The distributed rows of the port's bench_suite.py on this world: the
+    row's case (`dist_case`) at Kershaw n³ in float64, gathered; the record
+    `dist_record` makes of it (with stand-in times); and `dist_worker` run
+    with stand-ins for the case and the timer (fake counts, a fake clock):
+    its exit code and rank 0's printed record, for counts that pass the
+    gates and for a circulant2l count that misses them."""
+    import io
+
+    from circulantpreconditioner_tpu_torch import bench as tb
+    from circulantpreconditioner_tpu_torch import bench_suite as ts
+    from circulantpreconditioner_tpu_torch.parallel import device_mesh
+
+    dm = device_mesh()
+    P = dist.get_world_size()
+    case = ts.dist_case(n, mesh=dm, **F64)
+    out = {"circ": (np_(case.extra["unshard_circ"](case.circ.state)), case.circ.iters,
+                    case.circ.converged),
+           "grid": (np_(case.extra["unshard_grid"](case.grid.state)), case.grid.iters,
+                    case.grid.converged),
+           "grid_1dev": None if case.grid_1dev is None else (
+               np_(case.grid_1dev.state), case.grid_1dev.iters, case.grid_1dev.converged),
+           "levels": case.extra["gridmg_levels"]}
+    fake_t = {"ms": 1.0, "chain": {}, "launches_per_step": {"K1": 0, "K2": 0, "K3": 0},
+              "device_ms_per_step": 1.0}
+    out["record"] = ts.dist_record(n, P, case, fake_t, fake_t, fake_t["launches_per_step"],
+                                   ts.dist_cards(dm.device))
+    case.release()
+
+    def fake_case(circ_iters, grid_iters, one_iters):
+        def k(iters):
+            return ts.KrylovCase(None, None, iters, True, None)
+        return lambda n_, mesh, device: ts.DistCase(
+            k(circ_iters), k(grid_iters), k(one_iters) if dist.get_rank() == 0 else None,
+            {"unknowns": 4 * n_**3, "pc_halo_fwd": 1, "pc_halo_bak": 1, "spmv_halo": 1,
+             "gridmg_levels": "fake"})
+
+    def fake_time(case_, mesh, chains):
+        # a fake clock: 5 ms per chain plus 40 ms per step
+        chain = lambda K: 5e-3 + 40e-3 * K  # noqa: E731
+        t = tb.paired_chain_estimate(chain, *chains)
+        return {"ms": t.per_s * 1e3, "chain": t.as_dict(),
+                "launches_per_step": {"K1": 0, "K2": 100, "K3": 0}, "device_ms_per_step": 30.0}
+
+    patched = {"dist_case": None, "dist_time": fake_time,
+               "one_device_launches": lambda c: {"K1": 0, "K2": 100, "K3": 0}}
+    saved = {k: getattr(ts, k) for k in patched}
+    try:
+        for name, counts in (("pass", (99, 33, 33)), ("miss", (120, 33, 33))):
+            patched["dist_case"] = fake_case(*counts)
+            for k, v in patched.items():
+                setattr(ts, k, v)
+            text = io.StringIO()
+            with contextlib.redirect_stdout(text):
+                rc = ts.dist_worker(32, device="cpu")
+            out[name] = (rc, text.getvalue())
+    finally:
+        for k, v in saved.items():
+            setattr(ts, k, v)
+    return out
