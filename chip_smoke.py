@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's main paths, with kernels K1, K2 and K3
+"""GPU smoke run of the PyTorch port's main paths, with kernels K1 to K4
 checked and timed.
 
     python3 chip_smoke.py
@@ -7,7 +7,7 @@ Needs one CUDA GPU (exits 1 without one) and the repository beside this file.
 Phases, one stdout line each (more for the drivers' own logs):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build K1, K2 and K3 (csrc/*.cu) from the sources, one nvcc per source,
+2. build K1 to K4 (csrc/*.cu) from the sources, one nvcc per source,
    timed; ptxas's report of K1 and K3; the count of tensor-core instructions
    (HMMA, HGMMA) in the SASS of each of K3's float32 kernels (cuobjdump),
    which must not be 0;
@@ -76,7 +76,8 @@ Phases, one stdout line each (more for the drivers' own logs):
    the iterations, the state equals a plain-operator run to 1e-4); --pc
    circulant2l and dct2l at Kershaw 16³; --pc dctfft at wall 64³ and --pc
    blockfft --periodic at 64³, 20 steps each, with the residual of one
-   direct step, and each step against capture off (phase 22);
+   direct step (the DCT solve at "highest": the driver's "high" is held in
+   phase 25), and each step against capture off (phase 22);
    transport_implicit --mesh-family kershaw 32³ --pc circulant,
    2 steps. The host build of the 64³ projection is timed on its own line;
 14. times: K3 per call against its plain version and one complex64
@@ -157,7 +158,8 @@ Phases, one stdout line each (more for the drivers' own logs):
    replays with the NCCL collectives inside) and again with capture off:
    graph replays in the first, the same iterations, states within 1e-6;
    circulant2l's float32 GMRES iterations at 64³ equal the uncaptured
-   runs' recorded in PERF.md (106 and 62; pbjacobi's recorded 744 and 816
+   runs' recorded in PERF.md (107 and 62 at the slab solve's "high" tier;
+   106 and 62 when every tier ran fp32; pbjacobi's recorded 744 and 816
    are printed beside its own, which move between calls). A chunk of 20
    slab steps as one graph, its global norms inside against one eager
    all-reduce after it: the wall per step of each. Every
@@ -193,7 +195,8 @@ Phases, one stdout line each (more for the drivers' own logs):
    bound, the staged solve with and without K3 and the fused solve, K1), and
    a quick mode of the suite's rows wave_explicit, spmv and wave_implicit
    (gridmg, its iteration gate kept) at Kershaw 16³ with short chains; their
-   JSON lines, and their K1, K2 and K3 launches in the kernels line.
+   JSON lines, and their K1 to K4 launches in the kernels line (the
+   flagship at "high": one K4 launch per solve).
 24. the grid V-cycle on z-slabs (parallel/vcycle_dist.py), run last in phase
    20's world of one NCCL rank (its seconds printed apart) at Kershaw 32³ in
    float32: K2 at the path's shape (the rank's slab and its two halo planes)
@@ -203,11 +206,34 @@ Phases, one stdout line each (more for the drivers' own logs):
    equal to the one-device step's, the same K2 launches per warm step, and
    captured against capture off (the same iterations, states within 1e-6,
    no replay with capture off); then bench_suite.py's distributed row
-   (`dist_worker`) at world size 1 with chains of 1 and 3, its gates held.
-   Its K2 launches on the sharded step go into the kernels line.
-Paths G to J and phase 20's sharded drivers launch none of K1, K2 and K3;
-their launch counts are printed (0 expected) and checked. K1, K2 and K3
-count their launches per graph replay (utils/graphs.py). The iterations a
+   (`dist_worker`) at world size 1 with chains of 1 and 3: its gates held
+   with the PC's slab solve at "highest" (r05's circulant2l count came from
+   fp32 arithmetic on virtual CPU devices); at the JAX row's "high" its
+   count is printed beside and its other gates held. Its K2 launches on the
+   sharded step go into the kernels line.
+25. the precision tiers (kernel K4, csrc/tier_matmul.cu: "high" as bf16×3,
+   "default" as one bf16 pass): K4 against its plain version at the main
+   paths' shapes (the flagship collapse, the staged solve's x, y and z
+   stages at 100³, the DCT sweeps at 64³ with one matrix per component and
+   on the cell-major state's view, the block solve's x stage, a ragged
+   product, a second K chunk and column tile) in one and three passes,
+   max|o_K4 − o_plain| ≤ 1e-5 · max|o_plain|; at the flagship shape each
+   form (K4 in both, fp32) against float64; its time at each shape by
+   CUDA-graph replay beside fp32's, and at the flagship shape beside its
+   plain version, fp32 torch.matmul (cuBLAS, the library yardstick) and its
+   bound (the bytes); the flagship at each tier (time, ‖Cx − b‖/‖b‖ < 1e-4
+   at "highest" and "high", one K4 launch per solve at "high" and
+   "default", none at "highest"); main path B at "high": periodic 100³
+   transport, GMRES right-preconditioned by the dense collapse, 3 steps
+   through run_time_loop, ≤ 3 iterations each, K4 launched once per
+   iteration and cycle, the state within 1e-4 of the cuFFT solve's; the
+   wall 64³ DCT direct step at "high" under its tier's gate 1e-3; and the
+   Kershaw 16³ dct2l, dct2lm and circulant2l (use_matmul_dft, the JAX
+   default) GMRES counts at "high" and in fp32 beside the JAX suite's r05.
+Paths G to J launch none of K1 to K4, phase 20's sharded drivers none of K1
+to K3 (circulant2l's slab solve runs K4 at "high"); their launch counts are
+printed and checked. K1 to K4 count their launches per graph replay
+(utils/graphs.py). The iterations a
 solve queued past its stop (utils.graphs.STATS.masked) run masked and
 launch their kernels all the same: the counts hold them, each check adds
 the masked iterations' launches (per iteration, as a kept one) to what the
@@ -793,6 +819,7 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
     )
     from circulantpreconditioner_tpu_torch.models.transport import _direct_step, _identity_plus
     from circulantpreconditioner_tpu_torch.ops.assembly import wave_block_stencil
+    from circulantpreconditioner_tpu_torch.ops.dct_wave import DCTBlockWaveSolver
     from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
     from circulantpreconditioner_tpu_torch.ops.circulant import (
         BlockCirculantOperator,
@@ -1009,15 +1036,19 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
             wm = WaveSystem(cartesian_mesh(((-0.5, 0.5),) * 3, (NW,) * 3,
                                            periodic=bool(extra)), cfl=1e3 / 3, **f32)
             U0 = wm.initial_state()
-            U1 = (wm.unpack_fm(wm.dct_fft_stepper_fm()(wm.pack_fm(U0))[0]) if pc == "dctfft"
-                  else wm.block_fft_stepper()(U0)[0])
+            # the fp32 gate holds the DCT step at "highest"; phase 25 holds the
+            # driver's tier, "high" (bf16×3 through K4), to its own gate
+            U1 = (DCTBlockWaveSolver.create((NW,) * 3, 3, wm.dt, wm.c0, wm.mesh.spacing,
+                                            precision="highest", **f32).solve(U0)
+                  .reshape(U0.shape) if pc == "dctfft" else wm.block_fft_stepper()(U0)[0])
             res1 = (torch.linalg.norm(wm.implicit_matvec()(U1) - U0)
                     / torch.linalg.norm(U0)).item()
             print(f"[13 driver] wave_implicit {NW}^3 --pc {pc} {' '.join(extra)}: "
                   f"{res.iterations} steps (stationary {res.stationary}), median "
                   f"{np.median(res.step_seconds) * 1e3:.3f} "
-                  f"ms/step, driver wall {wall:.2f} s; one direct step ||(I+D)U1 - U0||/||U0|| "
-                  f"{res1:.3e} (tol {TOL_RESIDUAL:g})", flush=True)
+                  f"ms/step, driver wall {wall:.2f} s; one direct step "
+                  f"{'(the DCT solve at highest) ' if pc == 'dctfft' else ''}"
+                  f"||(I+D)U1 - U0||/||U0|| {res1:.3e} (tol {TOL_RESIDUAL:g})", flush=True)
             # the loop stops early once the state is stationary (‖dU‖ < 1e-5)
             check((res.iterations == 20 or res.stationary) and bool(torch.isfinite(res.state).all())
                   and res1 < TOL_RESIDUAL, f"{pc}: {res.iterations} steps, residual {res1:.3e}")
@@ -1163,21 +1194,16 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
 
 
 def kernel_launches() -> dict[str, int]:
-    """The launch counters of K1, K2 and K3."""
-    from circulantpreconditioner_tpu_torch.ops.complex_matmul import ComplexMatmulKernel
-    from circulantpreconditioner_tpu_torch.ops.fused_circulant import FusedCirculantSolver
-    from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+    """The launch counters of K1, K2, K3 and K4."""
+    from circulantpreconditioner_tpu_torch.utils import graphs
 
-    return {"K1": FusedCirculantSolver.launches, "K2": PlaneStencilMatvec.launches,
-            "K3": ComplexMatmulKernel.launches}
+    return dict(zip(("K1", "K2", "K3", "K4"), graphs.kernel_launches()))
 
 
 def reset_kernel_launches() -> None:
-    from circulantpreconditioner_tpu_torch.ops.complex_matmul import ComplexMatmulKernel
-    from circulantpreconditioner_tpu_torch.ops.fused_circulant import FusedCirculantSolver
-    from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+    from circulantpreconditioner_tpu_torch.utils import graphs
 
-    FusedCirculantSolver.launches = PlaneStencilMatvec.launches = ComplexMatmulKernel.launches = 0
+    graphs.credit(graphs.kernel_launches(), -1)
 
 
 def step_walls(step, U0, reps: int = 3) -> list[float]:
@@ -1305,7 +1331,7 @@ def captured_against_eager(path: str, make_step, U0, dt: float, smi: str, steps:
           f"{c['busy']:.1f} %; device-to-device copies {c['copy_ms']:.4f} ms/step), "
           f"{rec['captures']} graphs, {rec['replays']} replays; capture off: "
           f"wall {e['warm_ms']:.4f}, device {e['device_ms']:.4f} (busy {e['busy']:.1f} %); "
-          f"K1, K2, K3 launches {c['launches']} (capture off {e['launches']}); "
+          f"K1 to K4 launches {c['launches']} (capture off {e['launches']}); "
           f"max|dU|/max|U| {rel:.3e} (tol 1e-6); {smi}", flush=True)
     check(rec["replays"] > 0 and rec["captures"] > 0 and e["snap"]["replays"] == 0,
           f"path {path}: captured {c['snap']}, capture off {e['snap']}")
@@ -1375,10 +1401,14 @@ def bench_phase(smi: str) -> dict[str, int]:
           f"{sub['staged_full3d_k3_solves_per_s']:.1f} (K3 per solve "
           f"{sub['staged_full3d_k3_launches_per_solve']['K3']:g}), fused "
           f"{sub['fused_full3d_solves_per_s']:.1f} (K1 per solve "
-          f"{sub['fused_full3d_launches_per_solve']['K1']:g}); {smi}", flush=True)
+          f"{sub['fused_full3d_launches_per_solve']['K1']:g}); at {rec['precision']!r}, K4 per "
+          f"solve: flagship {sub['flagship_launches_per_solve']['K4']:g}, staged "
+          f"{sub['staged_full3d_launches_per_solve']['K4']:g}, through K3 "
+          f"{sub['staged_full3d_k3_launches_per_solve']['K4']:g}; {smi}", flush=True)
+    flag = sub["flagship_launches_per_solve"]
     check(sub["staged_full3d_k3_launches_per_solve"]["K3"] == 4
           and sub["fused_full3d_launches_per_solve"]["K1"] == 1
-          and not any(sub["flagship_launches_per_solve"].values()),
+          and flag["K4"] == 1 and not (flag["K1"] or flag["K2"] or flag["K3"]),
           f"bench.py's solvers launched {sub}")
     s = bench_suite.Suite(torch.device("cuda"), log=log)
     recs = [bench_suite.bench_wave_explicit(s, 16, K1=20, K2=100, block=10),
@@ -1389,9 +1419,215 @@ def bench_phase(smi: str) -> dict[str, int]:
         check(not r.get("gate_failures"), f"{r['metric']} at 16^3: {r.get('gate_failures')}")
         check(r["launches_per_step"]["K2"] >= 1, f"{r['metric']} at 16^3 launched no K2")
     launched = kernel_launches()
-    print(f"[23] K1, K2, K3 launches in phase 23: {launched}; phase 23 took "
+    print(f"[23] K1 to K4 launches in phase 23: {launched}; phase 23 took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     return launched
+
+
+# phase 25: the precision tiers. The 16^3 projection-PC counts of the JAX
+# suite's TPU run at "high" (results/bench_suite_r05.json), printed beside
+# this run's at "high" and in fp32
+R05_PC16 = {"dct2l": 43, "dct2lm": 28, "circulant2l": 62}
+TOL_K4 = 1e-5  # max|o_K4 − o_plain| / max|o_plain|
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 on the tensor cores (NVIDIA data sheet)
+# the DCT direct step's gate at "high": bf16×3 keeps about 16 of fp32's 24
+# mantissa bits (phase 25 prints a product's error against float64 in each
+# form), and the step's fp32 residual already lies within a factor of five
+# of the fp32 gate (phase 13), so the tier's gate is ten times fp32's
+TOL_RESIDUAL_DCT_HIGH = 1e-3
+
+
+def k4_shapes(dev: torch.device) -> dict:
+    """K4's calls on the main paths, (a, b, axis), from a seed: the flagship
+    collapse, the staged solve's x, y and z stages at 100^3, the DCT sweeps at
+    64^3 (one matrix per field component, and the cell-major state's
+    field-major view), the block solve's x stage at 16^3 (m = 4), and the
+    edges of K4's tiling (ragged; a second K chunk and column tile)."""
+    rng = np.random.default_rng(25)
+
+    def t(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32), device=dev)
+
+    return {
+        "flagship (10^4,100)x(100,100)": (t(N, N, N), t(N, N).T, 2),
+        "staged x forward (10^4,100)x(100,51)": (t(N, N, N), t(N, 51), 2),
+        "staged x inverse (10^4,51)x(51,100)": (t(N, N, 51), t(51, N), 2),
+        "staged y, per z (100,100)x(100,51)": (t(N, N, 51), t(N, N), 1),
+        "staged z (100,100)x(100,5100)": (t(N, N, 51), t(N, N), 0),
+        "DCT x 64^3, 4 components": (t(4, 64, 64, 64), t(4, 65, 64).transpose(1, 2), 3),
+        "DCT z inverse 64^3, 4 components": (t(4, 65, 65, 65), t(4, 64, 65).transpose(1, 2), 1),
+        "DCT x of the cell-major view": (torch.movedim(t(64, 64, 64, 4), -1, 0),
+                                          t(4, 65, 64).transpose(1, 2), 3),
+        "block x 16^3, m = 4": (t(16, 16, 16, 4), t(16, 9), 2),
+        "ragged (37,19)x(19,45)": (t(37, 19), t(19, 45), 1),
+        "2 K chunks, 2 column tiles (2113,129)x(129,136)": (t(2113, 129), t(129, 136), 1),
+    }
+
+
+def precision_tier_phase(dev: torch.device, smi: str) -> dict:
+    """Phase 25: kernel K4 (csrc/tier_matmul.cu) and the precision tiers. K4
+    against its plain version at the paths' shapes in one and three passes;
+    its time, its plain version's and fp32 torch.matmul's at the flagship
+    shape; the flagship at each tier; main path B at "high" (the dense
+    collapse as GMRES's preconditioner, K4 once per apply); the DCT direct
+    step at "high"; the 16^3 projection-PC counts at "high" and in fp32.
+    Returns K4's entry of the kernels line."""
+    from circulantpreconditioner_tpu_torch.bench_suite import first_step
+    from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh, kershaw_mesh
+    from circulantpreconditioner_tpu_torch.models import (
+        TransportEquation,
+        WaveSystem,
+        run_time_loop,
+    )
+    from circulantpreconditioner_tpu_torch.ops import tier_matmul as tm
+    from circulantpreconditioner_tpu_torch.ops.circulant import CirculantTransportOperator
+    from circulantpreconditioner_tpu_torch.ops.spectral_collapse import (
+        DenseCirculantSolver,
+        make_circulant_solver,
+    )
+    from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+    from circulantpreconditioner_tpu_torch.solvers.circulant_pc import (
+        BlockCirculantProjectionPC,
+        DCTBlockProjectionPC,
+    )
+
+    t_phase = time.perf_counter()
+    f32 = dict(device=dev, dtype=torch.float32)
+    # --- K4 against its plain version ---------------------------------------
+    shapes = k4_shapes(dev)
+    max_abs_err, worst = 0.0, 0.0
+    for name, (a, b, axis) in shapes.items():
+        errs = []
+        for precision in ("high", "default"):
+            before = tm.TierMatmulKernel.launches
+            o = tm.tier_matmul_cuda(a, b, precision, axis)
+            torch.cuda.synchronize()
+            check(tm.TierMatmulKernel.launches == before + 1, f"K4 at {name}: no launch counted")
+            p = tm.tier_matmul_reference(a, b, precision, axis)
+            err = (o - p).abs().max().item()
+            rel = err / p.abs().max().item()
+            max_abs_err, worst = max(max_abs_err, err), max(worst, rel)
+            errs.append(f"{precision} {rel:.3e}")
+            check(rel <= TOL_K4, f"K4 disagrees with its plain version at {name}, {precision}: "
+                                 f"{rel:.3e}")
+        print(f"[25 K4 vs plain] {name}: max|o - o_plain|/max|o_plain| " + ", ".join(errs)
+              + f" (tol {TOL_K4:g})", flush=True)
+    a, b, axis = shapes["flagship (10^4,100)x(100,100)"]
+    exact = tm.contract(a.double(), b.double(), axis)
+    forms = {"K4 high": lambda: tm.tier_matmul_cuda(a, b, "high", axis),
+             "K4 default": lambda: tm.tier_matmul_cuda(a, b, "default", axis),
+             "fp32 einsum": lambda: tm.contract(a, b, axis)}
+    err64 = {name: ((fn().double() - exact).abs().max() / exact.abs().max()).item()
+             for name, fn in forms.items()}
+    print("[25 K4 vs float64] the flagship shape, max|o - o_f64|/max|o_f64|: "
+          + "; ".join(f"{k} {v:.3e}" for k, v in err64.items()), flush=True)
+    # --- times at the paths' shapes -------------------------------------------
+    times = {}
+    for name, (sa, sb, sax) in shapes.items():
+        if "ragged" in name or "chunks" in name:
+            continue
+        times[name] = {"K4 high": graph_ms(lambda: tm.tier_matmul_cuda(sa, sb, "high", sax)),
+                       "K4 default": graph_ms(lambda: tm.tier_matmul_cuda(sa, sb, "default", sax)),
+                       "fp32 einsum": graph_ms(lambda: tm.contract(sa, sb, sax))}
+        print(f"[25 times] {name}: " + "; ".join(f"{k} {v:.4f} ms" for k, v in times[name].items())
+              + f" (CUDA-graph replay of 20 calls); {smi}", flush=True)
+    a2, m = a.reshape(-1, N), b.contiguous()
+    k4_ms = times["flagship (10^4,100)x(100,100)"]["K4 high"]
+    plain_ms = graph_ms(lambda: tm.tier_matmul_reference(a, b, "high", axis))
+    library_ms = graph_ms(lambda: torch.matmul(a2, m))
+    k4_bound, k4_by = bound(3 * 2.0 * N**3 * N, 4.0 * (2 * N**3 + N * N), PEAK_BF16)
+    print(f"[25 times] K4 at the flagship shape, three passes: {k4_ms:.4f} ms; its plain version "
+          f"{plain_ms:.4f} ms; fp32 torch.matmul (cuBLAS) {library_ms:.4f} ms; bound "
+          f"{k4_bound:.4f} ms ({k4_by}: {4.0 * (2 * N**3 + N * N) / 1e6:.2f} MB; three bf16 "
+          f"passes {6.0 * N**4 / 1e9:.1f} GFLOP at 989 TFLOP/s); {smi}", flush=True)
+    # --- the flagship at each tier ------------------------------------------
+    lams = flagship_lambdas()
+    op = CirculantTransportOperator.create((N, N, N), lams, **f32)
+    bvec = torch.as_tensor((np.random.default_rng(1).random((N, N, N)) * 50 + 600)
+                           .astype(np.float32), device=dev)
+    for precision in ("highest", "high", "default"):
+        solver = DenseCirculantSolver.create((N, N, N), lams, precision=precision, **f32)
+        before = tm.TierMatmulKernel.launches
+        x = solver.solve(bvec)
+        torch.cuda.synchronize()
+        per_solve = tm.TierMatmulKernel.launches - before
+        res = rel_residual(op, x, bvec)
+        ms = graph_ms(lambda: solver.solve(bvec))
+        print(f"[25 flagship] DenseCirculantSolver at {precision!r}: {ms:.4f} ms per solve "
+              f"(CUDA-graph replay), residual {res:.3e}, K4 launches per solve {per_solve}; "
+              f"{smi}", flush=True)
+        check(per_solve == (0 if precision == "highest" else 1),
+              f"the flagship at {precision!r} launched K4 {per_solve} times per solve")
+        if precision != "default":  # one bf16 pass: "rough-preconditioner grade"
+            check(res < TOL_RESIDUAL, f"the flagship at {precision!r}: residual {res:.3e}")
+    # --- main path B at "high" ------------------------------------------------
+    mesh = cartesian_mesh(((-0.5, 0.5),) * 3, (N, N, N), periodic=True)
+    model = TransportEquation(mesh, (1.0, 0.0, 0.0), cfl=1e3 / 3, **f32)
+    fop = model.fft_operator
+    M = make_circulant_solver(fop.shape_zyx, fop.lambdas_zyx, precision="high", **f32)
+    check(isinstance(M, DenseCirculantSolver), "path B at 'high' did not get the dense collapse")
+    step = model.implicit_stepper(M=M.as_preconditioner(), side="right")
+    u0 = model.initial_state()
+    solve_run(lambda: step(u0))  # the warm-up and the capture of the solve's graphs
+    reset_kernel_launches()
+    res_b, snap = solve_run(lambda: run_time_loop(step, u0, model.dt, tmax=1e9, ntmax=3,
+                                                  log=None))
+    k4_b = kernel_launches()
+    its = [d["extras"][0] for d in res_b.diagnostics]
+    conv = [d["extras"][2] for d in res_b.diagnostics]
+    expected = k1_expected_launches(its, snap["masked"])
+    u_ref = u0
+    fft_step = model.fft_stepper("fft")
+    for _ in range(3):
+        u_ref, _ = fft_step(u_ref)
+    dev_b = (res_b.state - u_ref).abs().max().item() / u_ref.abs().max().item()
+    print(f"[25 main path B] GMRES + the dense collapse at 'high', periodic 100^3: iterations "
+          f"{its}, converged {conv}, K4 launches {k4_b['K4']} (expected {expected}: one per "
+          f"iteration and cycle, {snap['masked_launches'][3]} of them by {snap['masked']} "
+          f"masked iterations), all launches {k4_b}; max|u - u_fft|/max|u| {dev_b:.3e}",
+          flush=True)
+    check(len(its) == 3 and all(conv) and max(its) <= 3, f"path B at 'high': iterations {its}, "
+          f"converged {conv}")
+    check(k4_b["K4"] == expected > 0, f"path B at 'high': {k4_b['K4']} K4 launches, expected "
+          f"{expected}")
+    check(dev_b < 1e-4, f"path B at 'high' disagrees with the direct solve: {dev_b:.3e}")
+    # --- the DCT direct step at "high" (phase 13 holds fp32's) -----------------
+    wm = WaveSystem(cartesian_mesh(((-0.5, 0.5),) * 3, (NW,) * 3), cfl=1e3 / 3, **f32)
+    U0 = wm.initial_state()
+    U1 = wm.unpack_fm(wm.dct_fft_stepper_fm()(wm.pack_fm(U0))[0])
+    res_dct = (torch.linalg.norm(wm.implicit_matvec()(U1) - U0) / torch.linalg.norm(U0)).item()
+    print(f"[25 DCT step] the wall {NW}^3 direct step (dct_fft_stepper_fm, 'high'): "
+          f"||(I+D)U1 - U0||/||U0|| {res_dct:.3e} (the tier's gate {TOL_RESIDUAL_DCT_HIGH:g}; "
+          f"fp32's in phase 13)", flush=True)
+    check(res_dct < TOL_RESIDUAL_DCT_HIGH, f"the DCT step at 'high': residual {res_dct:.3e}")
+    # --- the 16^3 projection-PC counts at "high" and in fp32 -------------------
+    kmesh = kershaw_mesh(((0.0, 1.0),) * 3, (16,) * 3)
+    wk = WaveSystem(kmesh, cfl=1e3 / 3, **f32)
+    pj = pcs.pbjacobi(wk.divergence, shift=1.0)
+    counts: dict[str, dict[str, int]] = {}
+    for precision in ("high", "highest"):
+        dct = DCTBlockProjectionPC(kmesh, wk.dt, wk.c0, precision=precision, **f32)
+        circ = BlockCirculantProjectionPC(kmesh, wk.dt, wk.c0, use_matmul_dft=True, **f32)
+        circ.op.precision = precision  # the JAX PC's tier is "high"; fp32 beside it
+        makers = {"dct2l": pcs.additive(dct.apply, pj),
+                  "dct2lm": pcs.multiplicative(wk.implicit_matvec(), dct.apply, pj),
+                  "circulant2l": pcs.additive(circ.apply, pj)}
+        for name, M_ in makers.items():
+            case = first_step(wk.implicit_stepper(M=M_, rtol=1e-5, atol=1e-5, maxiter=1000,
+                                                  side="right"), wk.initial_state())
+            check(case.converged, f"{name} at {precision!r}: not converged")
+            counts.setdefault(name, {})[precision] = case.iters
+    print("[25 16^3 counts] cell-major GMRES (right, rtol atol 1e-5) at Kershaw 16^3, "
+          "iterations at 'high' (K4) and in fp32 ('highest') beside the JAX suite's TPU run "
+          "(r05, 'high' on its matrix unit): " + "; ".join(
+              f"{name} {c['high']} ('high'), {c['highest']} (fp32), r05 {R05_PC16[name]}"
+              for name, c in counts.items()), flush=True)
+    print(f"[25] phase 25 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {"launches": k4_b["K4"], "masked_launches": snap["masked_launches"][3],
+            "max_abs_err": max_abs_err, "max_rel_err": worst, "ms": k4_ms, "plain_ms": plain_ms,
+            "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": library_ms,
+            "ms_by_shape": times, "err_vs_float64": err64, "pc_counts_16": counts}
+
 
 
 def slice6_phases(dev: torch.device, smi: str) -> None:
@@ -1595,7 +1831,7 @@ def slice6_phases(dev: torch.device, smi: str) -> None:
           f"by CUDA events; {smi}", flush=True)
 
     launched = kernel_launches()
-    print(f"[15-17] K1, K2, K3 launches on paths G, H and I: {launched} (0 expected: no TPU "
+    print(f"[15-17] K1 to K4 launches on paths G, H and I: {launched} (0 expected: no TPU "
           f"kernel lies on them)", flush=True)
     check(not any(launched.values()), f"paths G to I launched a kernel: {launched}")
 
@@ -1798,7 +2034,7 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
         f"graph replay" for k, f in forms.items()) + f"; {smi}", flush=True)
 
     launched = kernel_launches()
-    print(f"[18] K1, K2, K3 launches on path J: {launched} (0 expected: no TPU kernel lies on "
+    print(f"[18] K1 to K4 launches on path J: {launched} (0 expected: no TPU kernel lies on "
           f"it); phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     check(not any(launched.values()), f"path J launched a kernel: {launched}")
     return launched
@@ -2025,11 +2261,13 @@ def nccl_per_call(fn, calls: int = 20) -> dict[str, float]:
 
 
 # the row-sharded GMRES's iterations at Kershaw NW^3 in float32 on one NCCL
-# rank, uncaptured (PERF.md §6). circulant2l's are held; pbjacobi's ~800
+# rank, uncaptured (PERF.md §6). circulant2l's are held: its slab solve runs
+# the JAX PC's "high" tier, bf16×3 through K4, since PR 16 (107 and 62; 106
+# and 62 while every tier ran fp32). pbjacobi's ~800
 # float32 iterations move between calls with capture off too (740 against
 # 744 once; one device 807 against 805), so its captured run is held to the
 # uncaptured run of the same call (sharded_run) and printed beside these
-SHARDED_ITERS = {"pbjacobi": [744, 816], "circulant2l": [106, 62]}
+SHARDED_ITERS = {"pbjacobi": [744, 816], "circulant2l": [107, 62]}
 
 
 def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state,
@@ -2080,7 +2318,7 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state,
     t_phase = time.perf_counter()
     rng = np.random.default_rng(20)
     f32 = dict(device=dev, dtype=torch.float32)
-    launched = {"K1": 0, "K2": 0, "K3": 0}
+    launched = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
 
     def sharded_run(main, argv):
         """The driver captured (its steps, or its GMRES, as graph replays
@@ -2335,9 +2573,11 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state,
         inside_out = inside(dm) if inside is not None else None
         t_inside = time.perf_counter() - t_inside
     check(not dist.is_initialized(), "phase 20 left its process group open")
-    print(f"[20] phase 20 took {time.perf_counter() - t_phase - t_inside:.1f} s; K1 to K3 "
-          f"launches on the sharded drivers {launched}", flush=True)
-    check(not any(launched.values()), f"a sharded driver launched a kernel: {launched}")
+    print(f"[20] phase 20 took {time.perf_counter() - t_phase - t_inside:.1f} s; K1 to K4 "
+          f"launches on the sharded drivers {launched} (K4: circulant2l's slab solve at "
+          f"'high')", flush=True)
+    check(not (launched["K1"] or launched["K2"] or launched["K3"]) and launched["K4"] > 0,
+          f"the sharded drivers launched K1 to K3, or circulant2l no K4: {launched}")
     return launched, inside_out
 
 
@@ -2427,16 +2667,29 @@ def sharded_vcycle_phase(dev: torch.device, smi: str, dm) -> dict[str, int]:
     for s in (one, sharded, eager):
         s.release()  # before the group closes: NCCL waits for graphs that hold it
 
-    text = io.StringIO()
-    with contextlib.redirect_stdout(text):
-        rc = bench_suite.dist_worker(NV, chains=(1, 3),
-                                     log=lambda msg: print(f"[24] {msg}", file=sys.stderr))
-    rec = json.loads(text.getvalue().strip().splitlines()[-1])
-    print(f"[24 bench_suite.py --dist-worker {NV}, world size 1, chains of 1 and 3] "
-          f"{json.dumps(rec)}", flush=True)
-    check(rc == 0 and not rec.get("gate_failures"), f"the distributed row at {NV}^3: exit "
-          f"{rc}, {rec.get('gate_failures')}")
-    print(f"[24] K1, K2, K3 launches on the sharded GMRES step: {launched}; phase 24 took "
+    # the row's circulant2l gate is r05's count, which 8 virtual CPU devices
+    # computed in fp32 (XLA's CPU backend ignores the tier): held at
+    # "highest"; at the JAX row's "high" (bf16×3 through K4) the count is
+    # printed beside it and every other gate held
+    runs = {}
+    for precision in ("highest", "high"):
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = bench_suite.dist_worker(NV, chains=(1, 3), precision=precision,
+                                         log=lambda msg: print(f"[24] {msg}", file=sys.stderr))
+        rec = json.loads(text.getvalue().strip().splitlines()[-1])
+        runs[precision] = rc, rec
+        print(f"[24 bench_suite.py --dist-worker {NV}, world size 1, chains of 1 and 3, "
+              f"{precision!r}] {json.dumps(rec)}", flush=True)
+    (rc, rec), (_, rec_hi) = runs["highest"], runs["high"]
+    print(f"[24] circulant2l at {NV}^3: {rec_hi['gmres_iters']} iterations at 'high', "
+          f"{rec['gmres_iters']} at 'highest' (fp32), r05 {rec['r05']['gmres_iters']}", flush=True)
+    check(rc == 0 and not rec.get("gate_failures"), f"the distributed row at {NV}^3, "
+          f"'highest': exit {rc}, {rec.get('gate_failures')}")
+    others = [f for f in rec_hi.get("gate_failures", []) if not f.startswith("gmres_iters")]
+    check(rec_hi["converged"] and not others, f"the distributed row at {NV}^3, 'high': "
+          f"converged {rec_hi['converged']}, {rec_hi.get('gate_failures')}")
+    print(f"[24] K1 to K4 launches on the sharded GMRES step: {launched}; phase 24 took "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     check(launched["K2"] > 0 and not launched["K1"] and not launched["K3"],
           f"the sharded gridmg step launched {launched}")
@@ -2480,7 +2733,7 @@ def main() -> int:
 
     lib_path, build_s = build.build(force=True)
     build.load_library()
-    print(f"[2 build] K1, K2 and K3 built from csrc/ in {build_s:.2f} s", flush=True)
+    print(f"[2 build] K1 to K4 built from csrc/ in {build_s:.2f} s", flush=True)
     ptxas = lib_path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(ptxas):  # K1's and K3's register and shared-memory report
         if "Compiling entry function" in line and ("k3_cmm" in line or "k1_" in line):
@@ -2741,10 +2994,13 @@ def main() -> int:
     lap("21 and 22")
     b_launches = bench_phase(smi)
     lap("23")
+    k4 = precision_tier_phase(dev, smi)
+    lap("25")
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
     d_path = "20 the sharded drivers (parallel/)"
     b_path = "23 bench.py flagship and bench_suite.py rows at 16^3"
     v_path = f"24 sharded grid V-cycle GMRES step (parallel/vcycle_dist.py), Kershaw {NV}^3"
+    k4_path = "B GMRES + dense collapse at 'high' 100^3, 3 steps"
 
     print(json.dumps({"kernels": [{
         "name": "fused_circulant_solve (K1)",
@@ -2781,6 +3037,14 @@ def main() -> int:
         **k3, "launches_by_path": {**k3["launches_by_path"], j_path: j_launches["K3"],
                                    d_path: d_launches["K3"], b_path: b_launches["K3"],
                                    v_path: v_launches["K3"]},
+    }, {
+        "name": "tier_matmul (K4)",
+        "route": "cuda",
+        "source": "circulantpreconditioner_tpu_torch/csrc/tier_matmul.cu",
+        "replaces": "circulantpreconditioner_tpu/ops/fused_circulant.py:80",
+        **k4, "launches_by_path": {k4_path: k4["launches"], j_path: j_launches["K4"],
+                                   d_path: d_launches["K4"], b_path: b_launches["K4"],
+                                   v_path: v_launches["K4"]},
     }]}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(f"card: {smi}")

@@ -8,14 +8,16 @@ Flagship metric `circulant_pc_applies_per_s_100cubed`: direct solves of the
 preconditioner apply), with λ = (0, 0, dt/h), dt = (1e3/3)(h/6), in float32.
 `make_circulant_solver` at the "high" tier gives `DenseCirculantSolver` for
 this λ: the y and z transforms cancel, and the solve is one (10⁴, 100)·(100,
-100) product in full fp32 (TF32 off, utils/device.py). A solve must pass the
+100) product in bf16×3, one launch of kernel K4 (ops/tier_matmul.py), as the
+JAX bench's "high" tier computes it on the TPU. A solve must pass the
 residual gate ‖C x − b‖/‖b‖ < 1e-4 against the full 3D operator's matvec,
 or the program exits 1. The submetrics time the full-3D formulations under
 the same method: the staged DFT solver as the JAX package builds it
 (`use_kernel=False`), the same solver through kernel K3 (`use_kernel=True`)
-and the fused solver, kernel K1; each with its residual and its K1 to K3
-launches per solve. The SciPy pipeline (rfftn → divide → irfftn) on the
-host's CPU is `vs_baseline`'s yardstick.
+and the fused solver, kernel K1; each with its residual and its K1 to K4
+launches per solve, all at the "high" tier (`precision` in the record). The
+SciPy pipeline (rfftn → divide → irfftn) on the host's CPU is
+`vs_baseline`'s yardstick.
 
 Timing: paired, differenced chains on the card (`paired_chain_time`). A
 chain is K dependent solves x ← solve(x), run as replays of one CUDA graph
@@ -30,7 +32,9 @@ bound: no card beats its roofline. Without a CUDA device the timer raises:
 it never times the CPU.
 
 The one JSON line: {"metric", "value", "unit", "vs_baseline", "bound_ms",
-"device": {"name", "power_limit", "torch", "cuda"}, "submetrics"}.
+"bound_by", "precision", "device": {"name", "power_limit", "torch", "cuda"},
+"submetrics"}. `bound_ms` is that of the form the flagship runs: at "high"
+K4's three bf16 passes, so the bytes (8.04 MB, 0.0024 ms) bound it.
 """
 
 from __future__ import annotations
@@ -50,7 +54,9 @@ UNIT = "solves/s"
 N = 100  # the reference's largest registered grid ("gros calcul")
 TOL_RESIDUAL = 1e-4  # ‖C x − b‖/‖b‖, the JAX bench's gate
 PEAK_FP32 = 67e12  # H100 SXM float32 outside the tensor cores (NVIDIA data sheet)
+PEAK_BF16 = 989e12  # H100 SXM dense bf16 on the tensor cores (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3 bytes/s
+PRECISION = "high"  # the JAX bench's tier (the repository's bench.py:144,157,166)
 AGREE = 0.10  # the accepted pair and its partner differ by at most this share
 MIN_PAIRS, MAX_PAIRS = 3, 12
 
@@ -139,7 +145,7 @@ def paired_chain_time(chain: Callable[[int], float], K1: int, K2: int, *,
 
 class GraphChain:
     """A chain x ← fn(x) on the card, `block` links per replay of one CUDA
-    graph (utils/graphs.GraphSet: K1 to K3 count their launches per replay).
+    graph (utils/graphs.GraphSet: K1 to K4 count their launches per replay).
     Calling it with K runs K links from x0 and returns their seconds by CUDA
     events, ended by a synchronise; K is a multiple of `block`. The first
     call captures the graph (after an eager warm-up)."""
@@ -203,14 +209,14 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple[float, 
 
 
 def kernel_counts() -> dict[str, int]:
-    """K1, K2 and K3's launch counters, by name."""
+    """K1 to K4's launch counters, by name."""
     from circulantpreconditioner_tpu_torch.utils.graphs import kernel_launches
 
-    return dict(zip(("K1", "K2", "K3"), kernel_launches()))
+    return dict(zip(("K1", "K2", "K3", "K4"), kernel_launches()))
 
 
 def per_call(before: dict[str, int], calls: int) -> dict[str, float]:
-    """Launches of K1, K2 and K3 per call since the counts `before`."""
+    """Launches of K1 to K4 per call since the counts `before`."""
     return {k: (v - before[k]) / max(calls, 1) for k, v in kernel_counts().items()}
 
 
@@ -271,12 +277,12 @@ def flagship_case(n: int = N, *, device: torch.device, dtype: torch.dtype = torc
     u0 = torch.as_tensor(rng.random(shape).astype(np.float32) * 50 + 600).to(device=device,
                                                                             dtype=dtype)
     solvers = {"flagship": make_circulant_solver(shape, lams, device=device, dtype=dtype,
-                                                 precision="high")}
+                                                 precision=PRECISION)}
     if full3d:
-        solvers["staged_full3d"] = MatmulCirculantSolver.from_operator(op, precision="high")
+        solvers["staged_full3d"] = MatmulCirculantSolver.from_operator(op, precision=PRECISION)
         solvers["staged_full3d_k3"] = MatmulCirculantSolver.create(
-            shape, lams, device=device, dtype=dtype, precision="high", use_kernel=True)
-        solvers["fused_full3d"] = FusedCirculantSolver.from_operator(op, precision="high")
+            shape, lams, device=device, dtype=dtype, precision=PRECISION, use_kernel=True)
+        solvers["fused_full3d"] = FusedCirculantSolver.from_operator(op, precision=PRECISION)
     states = {k: s.solve(u0) for k, s in solvers.items()}
     residuals = {k: rel_residual(op, x, u0) for k, x in states.items()}
     return FlagshipCase(op, u0, solvers, states, residuals)
@@ -308,10 +314,17 @@ CHAINS = {"flagship": (2000, 20000, 100), "staged_full3d": (1000, 6000, 20),
           "staged_full3d_k3": (1000, 6000, 20), "fused_full3d": (500, 2500, 100)}
 
 
-def flagship_bound(n: int = N) -> tuple[float, str]:
-    """The dense collapse's bound at n³: 2·n³·n flops at the fp32 peak, or b
-    read, x written and the n×n matrix read, in float32."""
-    return bound(2.0 * n**3 * n, 4.0 * (2 * n**3 + n * n))
+def flagship_bound(n: int = N, precision: str = PRECISION) -> tuple[float, str]:
+    """The dense collapse's bound at n³ in the form `precision` runs on the
+    card: its 2·n³·n flops at the fp32 peak ("highest"), or K4's passes of
+    them (three at "high", one at "default") at the bf16 tensor-core peak;
+    or b read, x written and the n×n matrix read, in float32."""
+    from circulantpreconditioner_tpu_torch.ops.tier_matmul import PASSES
+
+    nbytes = 4.0 * (2 * n**3 + n * n)
+    if precision == "highest":
+        return bound(2.0 * n**3 * n, nbytes)
+    return bound(PASSES[precision] * 2.0 * n**3 * n, nbytes, PEAK_BF16)
 
 
 def flagship_record(*, device: torch.device | str = "cuda", log=print) -> dict:
@@ -340,7 +353,7 @@ def flagship_record(*, device: torch.device | str = "cuda", log=print) -> dict:
         t = paired_chain_time(chain, K1, K2, device=dev, bound_ms=b_ms)
         launches = per_call(before, chain.links - links)
         log(f"bench: {name} {1 / t.per_s:.1f} solves/s ({t.per_s * 1e3:.6f} ms; partner "
-            f"{t.partner * 1e3:.6f} ms, {len(t.pairs)} pairs), K1, K2, K3 launches per solve "
+            f"{t.partner * 1e3:.6f} ms, {len(t.pairs)} pairs), K1 to K4 launches per solve "
             f"{launches}")
         if name == "flagship":
             rate = 1.0 / t.per_s
@@ -359,7 +372,7 @@ def flagship_record(*, device: torch.device | str = "cuda", log=print) -> dict:
     sub["scipy_baseline_solves_per_s"] = baseline
     info = device_info()
     return {"metric": METRIC, "value": rate, "unit": UNIT, "vs_baseline": rate / baseline,
-            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_ms": b_ms, "bound_by": b_by, "precision": PRECISION,
             "device": {k: info[k] for k in ("name", "power_limit", "torch", "cuda")},
             "submetrics": sub}
 

@@ -52,7 +52,11 @@ solution, as the JAX suite's t=0 chains do: the work per link does not
 decay), driven by the host and timed by its clock, with the device time per
 step from torch.profiler beside (on the distributed rows, every chain begun
 after a barrier of all the ranks and timed as its slowest rank's, rank 0's
-device time beside). The SpMV rows and the explicit step carry
+device time beside). The rows whose solvers take a precision tier run the
+JAX rows' "high" (bf16×3 through K4 on the card: transport_implicit's dense
+PC, the DCT solves of dct2l, dct2lm and wave_dct_direct, the distributed
+circulant2l's slab solve) and say so in `precision`; `launches_per_step`
+counts K1 to K4. The SpMV rows and the explicit step carry
 `bound_ms`: the bytes of D's coefficients, its input and its output over the
 memory rate (the operations of 2 per stored entry are far below it).
 
@@ -87,6 +91,7 @@ import numpy as np
 import torch
 
 from circulantpreconditioner_tpu_torch.bench import (
+    PRECISION,
     GraphChain,
     bound,
     device_info,
@@ -339,7 +344,7 @@ def transport_implicit_case(n: int, *, device, dtype=F32, steady_steps: int = 50
                               dtype=dtype)
     op = model.fft_operator
     M = make_circulant_solver(op.shape_zyx, op.lambdas_zyx, device=device, dtype=dtype,
-                              precision="high").as_preconditioner()
+                              precision=PRECISION).as_preconditioner()
     u0 = model.initial_state()
     cases = {}
     for name, M_, side, restart in (("circulant", M, "right", 8), ("pcnone", None, "left", 30)):
@@ -363,6 +368,7 @@ def bench_transport_implicit(s: Suite, n: int = 100) -> dict:
     return gate_record({
         "metric": f"transport_implicit_step_ms_{n}cubed", "value": t_pc["ms"], "unit": "ms/step",
         "pc": "circulant (dense collapse, right-PC true residual, restart 8)",
+        "precision": PRECISION,
         "note": "t=0 solve (fixed iteration count) per step; late-time steps decay to the "
                 "*_steady counts",
         "gmres_iters_first_step": pc.iters, "gmres_iters_steady": pc.extra["iters_steady"],
@@ -527,8 +533,11 @@ def bench_pc_iterations(s: Suite, sides=(8, 16, 24)) -> dict:
         s.log(f"bench: kershaw {n}^3 table in {time.perf_counter() - t0:.1f} s: "
               + ", ".join(f"{k} {v['iters']}" for k, v in row.items()))
     rec = {"metric": "wave_implicit_gmres_iters_by_pc", "value": table, "unit": "iterations",
+           "precision": PRECISION,
            "note": "cell-major GMRES (right, rtol atol 1e-5, maxiter 1000); gridmg and aggvcycle "
-                   "at kershaw8 (512 cells <= bottom_max) are the exact dense inverse"}
+                   "at kershaw8 (512 cells <= bottom_max) are the exact dense inverse; dct2l's "
+                   "and dct2lm's DCT solve at the precision tier, circulant2l's coarse solve "
+                   "by torch.fft"}
     if failures:
         rec["gate_failures"] = failures
     return rec
@@ -632,6 +641,7 @@ def bench_wave_implicit(s: Suite, n: int = 16, pcs_=("gridmg",), K1: int = 5,
                            scipy_baseline_gmres_iters=base_iters)
         else:
             rec.update({f"{pc}_ms_per_step": t["ms"], f"{pc}_gmres_iters": c.iters,
+                        f"{pc}_precision": PRECISION if pc.startswith("dct") else None,
                         f"{pc}_converged": c.converged,
                         f"{pc}_device_ms_per_step": t["device_ms_per_step"],
                         f"{pc}_launches_per_step": t["launches_per_step"]})
@@ -660,6 +670,7 @@ def bench_wave_dct_direct(s: Suite, n: int = 64) -> dict:
     step.release()
     return {"metric": f"wave_dct_direct_us_per_step_{n}cubed", "value": t["ms"] * 1e3,
             "unit": "us/step", "unknowns": int(model.divergence.shape[0]),
+            "precision": PRECISION,  # the model's DCTBlockWaveSolver, as the JAX model's
             "note": "exact wall-BC direct solve (field-major, captured chunks of 10 steps), "
                     "replaces GMRES+ILU", "launches_per_step": t["launches_per_step"],
             "chain": t["chain"]}
@@ -848,14 +859,15 @@ class DistCase:
             s.release()
 
 
-def dist_case(n: int, *, mesh, device, dtype=F32) -> DistCase:
+def dist_case(n: int, *, mesh, device, dtype=F32, precision: str = PRECISION) -> DistCase:
     """A distributed row's problem on this rank of `mesh` (a RankMesh): the
     Kershaw n³ wave system at cfl 1e3/3 (eps 0.3) as the JAX suite's
     `_scale_worker` builds it, GMRES right, rtol atol 1e-5, maxiter 1000,
     its reductions all-reduced over the ranks: (1) HaloELLMatrix +
     DistributedBlockCirculantPC + sharded_pbjacobi, additive (circulant2l);
     (2) the sharded grid V-cycle over the K2 slab operator (gridmg). Rank 0
-    also solves (2) on one device (bench row wave_implicit's case)."""
+    also solves (2) on one device (bench row wave_implicit's case). The PC's
+    slab solve runs at `precision`, the JAX row's "high" unless asked."""
     import torch.distributed as dist
 
     from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
@@ -877,7 +889,7 @@ def dist_case(n: int, *, mesh, device, dtype=F32) -> DistCase:
     kw = dict(rtol=1e-5, atol=1e-5, maxiter=1000, side="right")
     Ah = HaloELLMatrix(D.to_csr(dtype), mesh, row_multiple=b)
     coarse = DistributedBlockCirculantPC(fv_mesh, model.dt, model.c0, mesh, Ah.n_padded,
-                                         dtype=dtype)
+                                         dtype=dtype, precision=precision)
     Dinv = np.linalg.inv(D.block_diagonal().cpu().numpy().astype(np.float64)
                          + np.eye(b)[None, :, :])
     M = pcs.additive(coarse.apply, sharded_pbjacobi(Dinv, Ah.n_padded, mesh, dtype=dtype))
@@ -1014,11 +1026,13 @@ def dist_cards(device: torch.device) -> dict:
     return {"name": name, "nvidia_smi": smi or ["not read"]}
 
 
-def dist_worker(n: int, device: str = "cuda", chains=DIST_CHAINS, log=None) -> int:
+def dist_worker(n: int, device: str = "cuda", chains=DIST_CHAINS, log=None,
+                precision: str = PRECISION) -> int:
     """One rank of a distributed row, under torchrun (or a process group the
-    caller opened): builds and solves `dist_case`, times both solves, and on
-    rank 0 prints the record as the last line of its stdout. Returns 1 when a
-    gate fails (every rank computes the same counts), else 0."""
+    caller opened): builds and solves `dist_case` (its PC's slab solve at
+    `precision`), times both solves, and on rank 0 prints the record as the
+    last line of its stdout. Returns 1 when a gate fails (every rank computes
+    the same counts), else 0."""
     import torch.distributed as dist
 
     from circulantpreconditioner_tpu_torch.parallel import device_mesh, rank_world
@@ -1029,7 +1043,7 @@ def dist_worker(n: int, device: str = "cuda", chains=DIST_CHAINS, log=None) -> i
         say = (log or (lambda msg: print(msg, file=sys.stderr, flush=True))) if rank0 \
             else (lambda msg: None)
         say(f"bench: distributed kershaw {n}^3 over {P} rank(s) ...")
-        case = dist_case(n, mesh=dm, device=dm.device)
+        case = dist_case(n, mesh=dm, device=dm.device, precision=precision)
         say(f"bench: circulant2l {case.circ.iters} iterations, gridmg sharded "
             f"{case.grid.iters} ({case.extra['gridmg_levels']})"
             + (f", one device {case.grid_1dev.iters}" if case.grid_1dev else ""))
@@ -1038,6 +1052,7 @@ def dist_worker(n: int, device: str = "cuda", chains=DIST_CHAINS, log=None) -> i
             t_grid = dist_time(case.grid, dm, chains)
             l1 = one_device_launches(case.grid_1dev) if case.grid_1dev else None
             rec = dist_record(n, P, case, t_circ, t_grid, l1, dist_cards(dm.device))
+            rec["precision"] = precision
             if rank0:
                 print(json.dumps(rec), flush=True)
             dist.barrier()  # rank 0's one-device solves are done

@@ -49,9 +49,13 @@ _SIGNATURES = {
     "k2_error_string": [_I],
     "k3_complex_matmul": [_P] * 6 + [_I] * 5 + [_P],
     "k3_error_string": [_I],
+    "k4_tier_matmul": [_P] * 3 + [_I, _L, _I, _L, _I] + [_L] * 4 + [_I, _I, _I, _P],
+    "k4_row_words": [_I],
+    "k4_error_string": [_I],
 }
 _RESTYPES = {"k1_error_string": ctypes.c_char_p, "k1_scratch_floats": _L,
-             "k2_error_string": ctypes.c_char_p, "k3_error_string": ctypes.c_char_p}
+             "k2_error_string": ctypes.c_char_p, "k3_error_string": ctypes.c_char_p,
+             "k4_error_string": ctypes.c_char_p}
 
 
 def _sources() -> list[Path]:

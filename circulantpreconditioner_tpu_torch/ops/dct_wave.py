@@ -13,7 +13,11 @@ frequency t the operator couples (P, Q_d) through a real (dim+1)² block
 with S_d and K_d the symmetric and antisymmetric halves of the ±e_d blocks of
 `wave_block_stencil` and σ_d(c) = −1 iff component c is q_d. The blocks are
 built and inverted once on the host; a solve is one batched matmul per axis
-and direction plus one batched block contraction.
+and direction plus one batched block contraction. The axis sweeps take the
+precision tier through `tier_matmul` (ops/tier_matmul.py; K4 at "high" and
+"default" on a CUDA float32 tensor, one launch per sweep, the per-component
+transforms as K4's batch); the block contraction, small per-frequency
+matvecs, stays fp32 in every tier.
 
 The cosine family (n modes, k = 0..n−1) and the sine family (m = 1..n) share
 one frequency axis of F = n + 1 slots. The JAX package rounds F up to a
@@ -28,8 +32,9 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from circulantpreconditioner_tpu_torch.ops.dft_matmul import _to, check_precision
-from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
+from circulantpreconditioner_tpu_torch.ops.dft_matmul import _to
+from circulantpreconditioner_tpu_torch.ops.tier_matmul import tier_matmul
+from circulantpreconditioner_tpu_torch.utils.device import check_precision, check_real_dtype
 
 
 def _freq_slots(n: int) -> int:
@@ -161,14 +166,12 @@ class DCTBlockWaveSolver:
         sub = "zyx"[3 - ndim:]
 
         def sweep(gb, a, fwd):
-            T, I = mats[a]
-            ax = sub[a]
-            spec = f"B{sub},Bw{ax}->B{sub.replace(ax, 'w')}"
-            return torch.einsum(spec, gb, T if fwd else I)
+            T = mats[a][0 if fwd else 1]  # (nb, w, a): component c's transform T[c]
+            return tier_matmul(gb, T.transpose(1, 2), self.precision, 1 + a)
 
         for a in range(ndim):
             gb = sweep(gb, a, fwd=True)
-        gb = torch.einsum(f"ij{sub},j{sub}->i{sub}", inv, gb)
+        gb = torch.einsum(f"ij{sub},j{sub}->i{sub}", inv, gb)  # fp32 in every tier
         for a in range(ndim):
             gb = sweep(gb, a, fwd=False)
         return gb

@@ -11,10 +11,14 @@ All tables are built in float64 on the host and cast once.
 
 Precision tiers. The JAX package names three tiers after the TPU's matrix
 unit: "highest" (float32, six bf16 passes), "high" (bf16x3, about 16 mantissa
-bits) and "default" (one bf16 pass, 8 bits). Each tier here must be at least
-as accurate as its TPU form; the einsum route maps all three to full float32
-matmuls (24 bits; TF32 is switched off in utils/device.py, so no global flag
-changes this). The mapping is the table `PRECISION_FORMS`.
+bits) and "default" (one bf16 pass, 8 bits). Every axis transform of the
+einsum route is a `tier_matmul` (ops/tier_matmul.py): on a CUDA float32
+tensor "high" and "default" run kernel K4 (three and one bf16 passes, the
+TPU's arithmetic) and "highest" full fp32; on the CPU and in float64 every
+tier is full precision, as XLA's CPU backend computes it (the table is
+utils/device.py `TIER_FORMS`). The per-frequency m × m block products of
+`MatmulBlockCirculantSolver` stay fp32 in every tier: they are small batched
+matvecs that K4's tiles do not fit.
 
 `use_kernel=True` sends the complex y and z stages through kernel K3
 (ops/complex_matmul.py): each stage collapses the spectrum to (rows, n), as
@@ -22,6 +26,7 @@ the JAX code does, and takes one K3 launch, so a 3D solve with no elided axis
 launches K3 four times. In float32 K3 computes in 3×TF32 on the tensor cores
 in every tier, as accurate as float32 (about 4e-7 · max|o| against float64 at
 n = 100 and 128); the JAX kernel route ran one bf16 pass whatever the tier.
+The x stages take the tier through K4 on this route too.
 `MatmulBlockCirculantSolver` is the block-circulant (m × m blocks, the
 periodic wave system) companion.
 """
@@ -39,17 +44,8 @@ from circulantpreconditioner_tpu_torch.ops.circulant import (
     np_eigenvalue_diagonal,
 )
 from circulantpreconditioner_tpu_torch.ops.complex_matmul import complex_matmul
-from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
-
-# tier → arithmetic of the einsum route (every entry at least as accurate as
-# the TPU tier of the same name); the K3 route is 3×TF32 in every tier
-PRECISION_FORMS = {"highest": "fp32", "high": "fp32", "default": "fp32"}
-
-
-def check_precision(precision: str) -> str:
-    if precision not in PRECISION_FORMS:
-        raise ValueError(f"precision must be one of {sorted(PRECISION_FORMS)}, got {precision!r}")
-    return precision
+from circulantpreconditioner_tpu_torch.ops.tier_matmul import tier_matmul
+from circulantpreconditioner_tpu_torch.utils.device import check_precision, check_real_dtype
 
 
 def _np_dft_mats(n: int):
@@ -80,10 +76,11 @@ def _to(a, device, dtype) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float64)).to(device=device, dtype=dtype)
 
 
-def _axis_cdft(re, im, C, S, axis, ndim, kernel=False):
-    """Complex DFT along `axis` by matmul: (re + i·im) ← (re + i·im)·(C + i·S).
-    kernel=True moves the axis last, collapses to (rows, n) and takes one
-    complex_matmul (K3 on a CUDA tensor), then undoes the collapse."""
+def _axis_cdft(re, im, C, S, axis, precision, kernel=False):
+    """Complex DFT along `axis` by matmul: (re + i·im) ← (re + i·im)·(C + i·S),
+    four `tier_matmul`s at `precision`. kernel=True moves the axis last,
+    collapses to (rows, n) and takes one complex_matmul (K3 on a CUDA tensor),
+    then undoes the collapse."""
     if kernel:
         n = re.shape[axis]
         rm, im_m = torch.movedim(re, axis, -1), torch.movedim(im, axis, -1)
@@ -93,11 +90,8 @@ def _axis_cdft(re, im, C, S, axis, ndim, kernel=False):
         k = o_re.shape[-1]
         return (torch.movedim(o_re.reshape(lead + (k,)), -1, axis),
                 torch.movedim(o_im.reshape(lead + (k,)), -1, axis))
-    sub = "zyx"[3 - ndim:]
-    a = sub[axis]
-    spec = f"{sub},{a}k->{sub.replace(a, 'k')}"
-    ein = lambda x, M: torch.einsum(spec, x, M)
-    return ein(re, C) - ein(im, S), ein(re, S) + ein(im, C)
+    mm = lambda x, M: tier_matmul(x, M, precision, axis)  # noqa: E731
+    return mm(re, C) - mm(im, S), mm(re, S) + mm(im, C)
 
 
 class MatmulCirculantSolver:
@@ -155,31 +149,18 @@ class MatmulCirculantSolver:
         was_flat = b.ndim == 1
         g = b.reshape(self.shape_zyx)
         inv_re, inv_im, F_re, F_im, B_re, B_im, mats = self.arrays
-        ndim = len(self.shape_zyx)
-        sub = "zyx"[3 - ndim:]
-        spec_x = f"{sub},xk->{sub[:-1]}k"
-        re = torch.einsum(spec_x, g, F_re)
-        im = torch.einsum(spec_x, g, F_im)
+        mm = lambda x, M: tier_matmul(x, M, self.precision)  # noqa: E731  (along x)
+        re, im = mm(g, F_re), mm(g, F_im)
         for ax_i, (C, S, _, _) in zip(self.axes, mats):
-            re, im = _axis_cdft(re, im, C, S, ax_i, ndim, self.use_kernel)
+            re, im = _axis_cdft(re, im, C, S, ax_i, self.precision, self.use_kernel)
         re, im = re * inv_re - im * inv_im, re * inv_im + im * inv_re
         for ax_i, (_, _, Ci, Si) in zip(self.axes, mats):
-            re, im = _axis_cdft(re, im, Ci, Si, ax_i, ndim, self.use_kernel)
-        spec_b = f"{sub[:-1]}k,kx->{sub}"
-        x = torch.einsum(spec_b, re, B_re) + torch.einsum(spec_b, im, B_im)
+            re, im = _axis_cdft(re, im, Ci, Si, ax_i, self.precision, self.use_kernel)
+        x = mm(re, B_re) + mm(im, B_im)
         return x.reshape(-1) if was_flat else x
 
     def as_preconditioner(self):
         return self.solve
-
-
-def _axis_cdft_b(re, im, C, S, axis, ndim):
-    """Complex DFT along spatial `axis` by matmul, with a trailing block axis m."""
-    sub = "zyx"[3 - ndim:] + "m"
-    a = sub[axis]
-    spec = f"{sub},{a}k->{sub.replace(a, 'k')}"
-    ein = lambda x, M: torch.einsum(spec, x, M)
-    return ein(re, C) - ein(im, S), ein(re, S) + ein(im, C)
 
 
 class MatmulBlockCirculantSolver:
@@ -224,19 +205,16 @@ class MatmulBlockCirculantSolver:
         was_flat = b.ndim == 1
         g = b.reshape(self.shape_zyx + (self.m,))
         inv_re, inv_im, F_re, F_im, B_re, B_im, mats = self.arrays
-        ndim = len(self.shape_zyx)
-        sub = "zyx"[3 - ndim:] + "m"
-        spec_fwd = f"{sub},xk->{sub[:-2]}km"  # x-axis half-spectrum forward
-        re = torch.einsum(spec_fwd, g, F_re)
-        im = torch.einsum(spec_fwd, g, F_im)
+        x_ax = len(self.shape_zyx) - 1  # the x axis, before the block axis m
+        mm = lambda x, M: tier_matmul(x, M, self.precision, x_ax)  # noqa: E731
+        re, im = mm(g, F_re), mm(g, F_im)  # the x-axis half-spectrum forward
         for ax_i, (C, S, _, _) in enumerate(mats):
-            re, im = _axis_cdft_b(re, im, C, S, ax_i, ndim)
-        blk = lambda M, v: torch.einsum("...ij,...j->...i", M, v)  # noqa: E731
+            re, im = _axis_cdft(re, im, C, S, ax_i, self.precision)
+        blk = lambda M, v: torch.einsum("...ij,...j->...i", M, v)  # noqa: E731  (fp32)
         re, im = (blk(inv_re, re) - blk(inv_im, im), blk(inv_re, im) + blk(inv_im, re))
         for ax_i, (_, _, Ci, Si) in enumerate(mats):
-            re, im = _axis_cdft_b(re, im, Ci, Si, ax_i, ndim)
-        spec_bwd = f"{sub[:-2]}km,kx->{sub}"
-        x = torch.einsum(spec_bwd, re, B_re) + torch.einsum(spec_bwd, im, B_im)
+            re, im = _axis_cdft(re, im, Ci, Si, ax_i, self.precision)
+        x = mm(re, B_re) + mm(im, B_im)
         return x.reshape(-1) if was_flat else x
 
     def as_preconditioner(self):

@@ -37,8 +37,10 @@ same stage order, by `torch.matmul` in the input's dtype.
 for a CUDA tensor it launches K1 or raises.
 
 Precision tiers: all three compute in float32 on the CUDA cores, at least as
-accurate as each TPU tier (ops/dft_matmul.py, `PRECISION_FORMS`). Size
-limit: the z pass holds whole pencils in shared memory, so nz ≤ MAX_NZ.
+accurate as each TPU tier: the JAX kernel's tiers are those of its DFT
+matmuls (`_mk_ops`), and an FFT has none; the plain version's dense tables
+run fp32 in every tier too. Size limit: the z pass holds whole pencils in
+shared memory, so nz ≤ MAX_NZ.
 """
 
 from __future__ import annotations
@@ -59,9 +61,12 @@ from circulantpreconditioner_tpu_torch.ops.dft_matmul import (
     _np_dft_mats,
     _np_rdft_mats,
     _to,
-    check_precision,
 )
-from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype, complex_dtype
+from circulantpreconditioner_tpu_torch.utils.device import (
+    check_precision,
+    check_real_dtype,
+    complex_dtype,
+)
 
 # the z pass keeps 16 pencils of nz points three times (Stockham ping-pong,
 # and their 1/Λ) in a block's 227 KB of shared memory

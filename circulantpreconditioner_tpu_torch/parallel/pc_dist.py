@@ -41,16 +41,18 @@ import torch
 from circulantpreconditioner_tpu_torch.mesh.core import Mesh as FVMesh
 from circulantpreconditioner_tpu_torch.ops.csr import CSRMatrix
 from circulantpreconditioner_tpu_torch.ops.dft_matmul import (
+    _axis_cdft,
     _np_dft_mats,
     _np_rdft_mats,
-    check_precision,
 )
+from circulantpreconditioner_tpu_torch.ops.tier_matmul import tier_matmul
 from circulantpreconditioner_tpu_torch.parallel.mesh_utils import (
     RankMesh,
     replicated,
     shard_on_axis,
 )
 from circulantpreconditioner_tpu_torch.parallel.spmv_dist import host_ell, pad_rows
+from circulantpreconditioner_tpu_torch.utils.device import check_precision
 
 
 def _build_exchange(cols: np.ndarray, n_src_blocks: int, Pn: int):
@@ -150,8 +152,10 @@ class SlabBlockCirculantSolver:
         (m × m) block solve by the pre-inverted symbol, split on ky
         inverse z-DFT → all-to-all back → inverse y → inverse x
 
-    Needs nz % P == 0 and ny % P == 0; m = 1 is the scalar solver. Every
-    precision tier computes in full fp32 (ops/dft_matmul.PRECISION_FORMS)."""
+    Needs nz % P == 0 and ny % P == 0; m = 1 is the scalar solver. The axis
+    transforms take the precision tier through `tier_matmul`
+    (ops/tier_matmul.py: K4 at "high" and "default" on a CUDA float32
+    tensor); the (m × m) block solve stays fp32 in every tier."""
 
     def __init__(self, shape_zyx, m: int, inv_sym: np.ndarray, mesh: RankMesh,
                  axis: str = "shard", dtype: torch.dtype = torch.float32,
@@ -198,11 +202,6 @@ class SlabBlockCirculantSolver:
         """The global (nz, ny, nx, m) field, on every rank."""
         return self.mesh.all_gather(x, self.axis)
 
-    @staticmethod
-    def _cdft(re, im, C, S, spec):
-        ein = lambda v, M: torch.einsum(spec, v, M)  # noqa: E731
-        return ein(re, C) - ein(im, S), ein(re, S) + ein(im, C)
-
     def _transpose(self, re, im, split, concat):
         """(re, im) through one all-to-all, stacked in one message."""
         both = self.mesh.all_to_all(torch.stack([re, im]), self.axis, split + 1, concat + 1)
@@ -210,19 +209,19 @@ class SlabBlockCirculantSolver:
 
     def _local_solve(self, b_loc: torch.Tensor) -> torch.Tensor:
         """b_loc (nz/P, ny, nx, m) real → x_loc of the same shape."""
-        re = torch.einsum("zyxm,xk->zykm", b_loc, self.F_re)
-        im = torch.einsum("zyxm,xk->zykm", b_loc, self.F_im)
-        re, im = self._cdft(re, im, self.Cy, self.Sy, "zyxm,yk->zkxm")
+        p = self.precision
+        mm = lambda v, M: tier_matmul(v, M, p, 2)  # noqa: E731  (along x)
+        re, im = mm(b_loc, self.F_re), mm(b_loc, self.F_im)
+        re, im = _axis_cdft(re, im, self.Cy, self.Sy, 1, p)
         re, im = self._transpose(re, im, 1, 0)  # (nz, ny/P, nxr, m)
-        re, im = self._cdft(re, im, self.Cz, self.Sz, "zyxm,zk->kyxm")
-        ire, iim = self.inv_re, self.inv_im  # (ire + i·iim) @ (re + i·im)
+        re, im = _axis_cdft(re, im, self.Cz, self.Sz, 0, p)
+        ire, iim = self.inv_re, self.inv_im  # (ire + i·iim) @ (re + i·im), fp32
         ein = lambda M, v: torch.einsum("...ij,...j->...i", M, v)  # noqa: E731
         re, im = ein(ire, re) - ein(iim, im), ein(ire, im) + ein(iim, re)
-        re, im = self._cdft(re, im, self.Czi, self.Szi, "zyxm,zk->kyxm")
+        re, im = _axis_cdft(re, im, self.Czi, self.Szi, 0, p)
         re, im = self._transpose(re, im, 0, 1)  # (nz/P, ny, nxr, m)
-        re, im = self._cdft(re, im, self.Cyi, self.Syi, "zyxm,yk->zkxm")
-        return (torch.einsum("zykm,kx->zyxm", re, self.B_re)
-                + torch.einsum("zykm,kx->zyxm", im, self.B_im))
+        re, im = _axis_cdft(re, im, self.Cyi, self.Syi, 1, p)
+        return mm(re, self.B_re) + mm(im, self.B_im)
 
     def solve(self, b: torch.Tensor) -> torch.Tensor:
         """b: this rank's slab (nz/P, ny, nx, m), or its flat cell-major form."""

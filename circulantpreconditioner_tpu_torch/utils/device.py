@@ -7,8 +7,23 @@
   `torch.backends.cuda.matmul.allow_tf32` / `torch.backends.cudnn.allow_tf32`
   are set; this module sets both to False when it is imported, so every
   float32 `matmul`/`einsum` of the port runs in full float32. Faster tensor-core
-  forms are chosen per call site (see the precision tiers in ops/dft_matmul.py),
-  never through these global flags.
+  forms are chosen per call site, never through these global flags: the
+  precision tiers below, and K3's 3×TF32 (ops/complex_matmul.py).
+- The precision tiers. The JAX package's DFT-by-matmul solvers take
+  `precision=` "highest", "high" or "default", named after the TPU's matrix
+  unit. `TIER_FORMS` says what each computes here, by device and dtype:
+
+      tier        CUDA float32                     CPU, or float64
+      "highest"   fp32                             full precision
+      "high"      bf16×3 (K4, three passes)        full precision
+      "default"   one bf16 pass (K4)               full precision
+
+  bf16×3 splits each operand into hi = bf16(a) and lo = bf16(a − hi) and sums
+  hi·hi + lo·hi + hi·lo in fp32, as the JAX package's Pallas kernel does
+  (ops/fused_circulant.py::_mk_ops there); one pass is bf16(a)·bf16(b). The
+  CPU and float64 column is XLA's CPU backend, which ignores `precision=`,
+  and the TPU's lack of float64. `ops/tier_matmul.py::tier_matmul` applies
+  the table.
 
 The JAX package's `utils/tpu_compat.py` (`tile_scalar`, `fetch_scalar`,
 `retry_transient`, the persistent compile cache) has no counterpart here:
@@ -34,6 +49,27 @@ def resolve_device(name: str | torch.device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(name)!r}: use 'cuda' or 'cpu'")
     return dev
+
+
+# (device type, dtype) → tier → arithmetic of the tier's products
+TIER_FORMS = {
+    ("cuda", torch.float32): {"highest": "fp32", "high": "bf16x3", "default": "bf16"},
+}
+FULL_FORMS = {"highest": "full", "high": "full", "default": "full"}
+
+
+def check_precision(precision: str) -> str:
+    """A precision tier's name, or a ValueError."""
+    if precision not in FULL_FORMS:
+        raise ValueError(f"precision must be one of {sorted(FULL_FORMS)}, got {precision!r}")
+    return precision
+
+
+def tier_form(device: torch.device, dtype: torch.dtype, precision: str) -> str:
+    """The arithmetic of tier `precision` on `device` in `dtype`: "fp32",
+    "bf16x3", "bf16" (CUDA float32) or "full" (CPU, or float64)."""
+    check_precision(precision)
+    return TIER_FORMS.get((torch.device(device).type, dtype), FULL_FORMS)[precision]
 
 
 def check_real_dtype(dtype: torch.dtype) -> torch.dtype:

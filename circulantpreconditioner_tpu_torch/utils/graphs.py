@@ -31,7 +31,7 @@ as CUDA graphs captured from its plain PyTorch code:
   a pinned slot and records an event; the host reads a slot after waiting on
   its event, L iterations behind the device (the lookahead), so the card
   always has work queued. On the CPU the flags are read directly.
-- Kernel launch counts. K1, K2 and K3 count their launches where their
+- Kernel launch counts. K1 to K4 count their launches where their
   wrappers launch them, in Python, which a replay does not reach. A graph
   records how many launches of each it captured (the capture itself launches
   nothing and counts nothing), and every replay adds them. An iteration that
@@ -61,17 +61,18 @@ def _kernel_classes() -> tuple:
     from circulantpreconditioner_tpu_torch.ops.complex_matmul import ComplexMatmulKernel
     from circulantpreconditioner_tpu_torch.ops.fused_circulant import FusedCirculantSolver
     from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+    from circulantpreconditioner_tpu_torch.ops.tier_matmul import TierMatmulKernel
 
-    return (FusedCirculantSolver, PlaneStencilMatvec, ComplexMatmulKernel)
+    return (FusedCirculantSolver, PlaneStencilMatvec, ComplexMatmulKernel, TierMatmulKernel)
 
 
 def kernel_launches() -> tuple[int, ...]:
-    """The launch counters of K1, K2 and K3, in that order."""
+    """The launch counters of K1, K2, K3 and K4, in that order."""
     return tuple(cls.launches for cls in _kernel_classes())
 
 
 def credit(counts: tuple[int, ...], sign: int = 1) -> None:
-    """Add (sign = 1) or take back (sign = −1) launches of K1, K2 and K3."""
+    """Add (sign = 1) or take back (sign = −1) launches of K1 to K4."""
     for cls, n in zip(_kernel_classes(), counts):
         cls.launches += sign * n
 
@@ -85,7 +86,7 @@ class SolveStats:
     solves: int = 0
     iterations: int = 0  # iterations kept: the JAX while_loops' trips
     masked: int = 0  # iterations run past the stop, masked
-    masked_launches: tuple[int, ...] = (0, 0, 0)  # K1, K2, K3 launched by the masked ones
+    masked_launches: tuple[int, ...] = (0, 0, 0, 0)  # K1 to K4 launched by the masked ones
     replays: int = 0  # graph replays
     eager_calls: int = 0  # step functions run eagerly (on the CPU, uncaptured, warm-ups)
     waits: int = 0  # host waits on a flag event

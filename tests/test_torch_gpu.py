@@ -1,6 +1,7 @@
-"""Tests of the port that need the GPU: kernels K1, K2 and K3 against their
-plain versions, one GMRES step preconditioned through K1, one grid-V-cycle
-GMRES step on the wave system through K2, the staged DFT solve through K3,
+"""Tests of the port that need the GPU: kernels K1, K2, K3 and K4 against
+their plain versions (K4 at the paths' shapes in both bf16 forms, and the
+flagship at "high" through it), one GMRES step preconditioned through K1,
+one grid-V-cycle GMRES step on the wave system through K2, the staged DFT solve through K3,
 one dct2lm GMRES step through K2, and the paths with no hand-written kernel
 (ILU(0) and block-Jacobi ILU(0), diffusion, the aggregation V-cycle, the
 supercell SpMV and V-cycle of the tet meshes) on the card against the CPU,
@@ -685,6 +686,74 @@ def test_sharded_steps_captured_through_nccl(cuda, tmp_path, driver, argv):
     assert res.iterations == eager.iterations == steps
     scale = eager.state.abs().max().item()
     assert (res.state - eager.state).abs().max().item() <= 1e-6 * scale
+
+
+# K4's calls on the main paths: (a's shape, b's shape, axis, b transposed)
+_K4_SHAPES = [((100, 100, 100), (100, 100), 2, True),  # the flagship collapse, M.T
+              ((100, 100, 100), (100, 51), 2, False),  # the staged solve's x forward
+              ((100, 100, 51), (51, 100), 2, False),   # and inverse
+              ((100, 100, 51), (100, 100), 1, False),  # its y stage, per z
+              ((100, 100, 51), (100, 100), 0, False),  # its z stage
+              ((4, 64, 64, 64), (4, 65, 64), 3, True),  # a DCT sweep, one matrix per component
+              ((16, 16, 16, 4), (16, 9), 2, False),    # the block solve's x stage, m = 4
+              ((37, 19), (19, 45), 1, False),          # ragged
+              ((2113, 129), (129, 136), 1, False)]     # two K chunks and two column tiles
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("a_shape,b_shape,axis,transposed", _K4_SHAPES,
+                         ids=lambda v: "x".join(map(str, v)) if isinstance(v, tuple) else str(v))
+def test_k4_kernel_matches_plain(cuda, a_shape, b_shape, axis, transposed, precision):
+    """K4 in three and one bf16 passes against its plain version (the same
+    splits, fp32 sums in another order): within 1e-5 · max|plain|."""
+    from circulantpreconditioner_tpu_torch.ops import tier_matmul as ttm
+
+    rng = np.random.default_rng(16)
+    a = torch.as_tensor(rng.normal(size=a_shape).astype(np.float32), device=cuda)
+    b = torch.as_tensor(rng.normal(size=b_shape).astype(np.float32), device=cuda)
+    b = b.transpose(-1, -2) if transposed else b
+    before = ttm.TierMatmulKernel.launches
+    o = ttm.tier_matmul(a, b, precision, axis)
+    torch.cuda.synchronize()
+    assert ttm.TierMatmulKernel.launches == before + 1
+    p = ttm.tier_matmul_reference(a, b, precision, axis)
+    assert o.shape == p.shape
+    assert (o - p).abs().max().item() <= 1e-5 * p.abs().max().item()
+
+
+@pytest.mark.gpu
+def test_flagship_at_high_through_k4(cuda):
+    """The 100³ dense collapse at "high": one K4 launch per solve, and the
+    residual gate 1e-4 (the TPU's "high" gave 3.46e-5)."""
+    from circulantpreconditioner_tpu_torch.ops import tier_matmul as ttm
+    from circulantpreconditioner_tpu_torch.ops.spectral_collapse import make_circulant_solver
+
+    n = 100
+    lams = (0.0, 0.0, (1e3 / 3) / 6)
+    s = make_circulant_solver((n,) * 3, lams, device=cuda, dtype=torch.float32,
+                              precision="high")
+    b = torch.as_tensor((np.random.default_rng(1).random((n,) * 3) * 50 + 600)
+                        .astype(np.float32), device=cuda)
+    before = ttm.TierMatmulKernel.launches
+    x = s.solve(b)
+    torch.cuda.synchronize()
+    assert ttm.TierMatmulKernel.launches == before + 1
+    op = CirculantTransportOperator.create((n,) * 3, lams, device=cuda, dtype=torch.float32)
+    assert (torch.linalg.norm(op.matvec(x) - b) / torch.linalg.norm(b)).item() < 1e-4
+
+
+@pytest.mark.gpu
+def test_k4_split_kept_per_constant(cuda):
+    """B is split once per constant and made anew when it changes in place."""
+    from circulantpreconditioner_tpu_torch.ops import tier_matmul as ttm
+
+    a = torch.ones(64, 16, device=cuda)
+    m = torch.ones(16, 8, device=cuda)
+    assert ttm._split_of(m.T.T) is ttm._split_of(m.T.T)
+    m.mul_(2.0)
+    torch.testing.assert_close(ttm.tier_matmul(a, m, "high"), torch.full((64, 8), 32.0,
+                                                                         device=cuda))
 
 
 @pytest.mark.gpu

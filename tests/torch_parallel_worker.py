@@ -513,7 +513,7 @@ def bench_dist_checks(n: int) -> dict:
     def fake_case(circ_iters, grid_iters, one_iters):
         def k(iters):
             return ts.KrylovCase(None, None, iters, True, None)
-        return lambda n_, mesh, device: ts.DistCase(
+        return lambda n_, mesh, device, precision: ts.DistCase(
             k(circ_iters), k(grid_iters), k(one_iters) if dist.get_rank() == 0 else None,
             {"unknowns": 4 * n_**3, "pc_halo_fwd": 1, "pc_halo_bak": 1, "spmv_halo": 1,
              "gridmg_levels": "fake"})
