@@ -130,7 +130,9 @@ Phases, one stdout line each (more for the drivers' own logs):
    recovered mesh equal to kershaw_mesh's bit for bit; wave_implicit <file>
    --pc gridmg for 2 steps: phase 9's iterations and K2 launches, the state
    within 1e-6 of phase 9's; (d) one such step under utils.profiling.trace
-   (the Chrome trace must name K2's kernel), timed and StepMetrics; (b) a
+   (the Chrome trace must name K2's kernel and the host span port.flag_wait;
+   the device span port.op must count K2's launches), timed, and two
+   untraced steps that add nothing to the spans; (b) a
    Kershaw-tet 16³ file with each cell's own vertices: read_mesh welds it,
    finds no non-conforming pair and no grid, and RCM-orders it; its cell
    centres and volumes equal kershaw_tet_mesh's (1e-12); the window SpMV
@@ -2084,7 +2086,8 @@ def mesh_file_phases(dev: torch.device, smi: str, mesh64, path_d) -> dict[str, i
     from circulantpreconditioner_tpu_torch.models import WaveSystem
     from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
     from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
-    from circulantpreconditioner_tpu_torch.utils.profiling import StepMetrics, timed, trace
+    from circulantpreconditioner_tpu_torch.utils import graphs
+    from circulantpreconditioner_tpu_torch.utils.profiling import timed, trace
 
     t_phase = time.perf_counter()
     cube = ((-0.5, 0.5),) * 3
@@ -2136,20 +2139,31 @@ def mesh_file_phases(dev: torch.device, smi: str, mesh64, path_d) -> dict[str, i
         step = model.implicit_stepper_fm(M_fm=pc.apply_fm, side="right")
         G = model.pack_fm(model.initial_state()).reshape(-1)
         step(G)  # warm-up
-        metrics, t = StepMetrics(), {}
+        t = {}
+        graphs.STATS.reset()
+        k2_0 = kernel_launches()["K2"]
         with trace(f"{tmp}/trace") as logdir, timed(t, "traced"):
-            _, _, iters, resnorm, _ = step(G)
-        metrics.log(solve_s=t["traced"], iters=int(iters), resnorm=float(resnorm))
+            step(G)
+        k2 = kernel_launches()["K2"] - k2_0
+        traced = graphs.STATS.snapshot()
         for k in range(2):
             with timed(t, f"step {k}"):
-                _, _, iters, resnorm, _ = step(G)
-            metrics.log(solve_s=t[f"step {k}"], iters=int(iters), resnorm=float(resnorm))
+                step(G)
+        untraced = graphs.STATS.snapshot()
+        spans = {k: v for k, v in traced.items() if k.startswith("span_") and k.endswith("_n")}
         traces = [f for f in os.listdir(logdir) if f.endswith(".json")]
         text = open(os.path.join(logdir, traces[0])).read() if len(traces) == 1 else ""
         print(f"[19d profiling] trace: {traces} ({len(text) / 1e6:.1f} MB), names K2's kernel "
-              f"k2_plane_stencil_kernel {text.count('k2_plane_stencil_kernel')} times; timed "
+              f"k2_plane_stencil_kernel {text.count('k2_plane_stencil_kernel')} times, the host "
+              f"span port.flag_wait {text.count('port.flag_wait')} times; timed "
               + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in t.items())
-              + f"; StepMetrics.summary() {metrics.summary()}; {smi}", flush=True)
+              + f"; device span entries {spans}, K2 launches {k2}; port.op seconds "
+              f"{traced['span_port_op_incl_s']:.6f}, after two untraced steps "
+              f"{untraced['span_port_op_incl_s']:.6f}; {smi}", flush=True)
+        check(traced["span_port_op_n"] == k2 > 0 and "port.flag_wait" in text
+              and {k: untraced[k] for k in spans} == spans,
+              "the spans of the traced step: port.op's entries are not K2's launches, the "
+              "trace lacks port.flag_wait, or untraced steps added to the spans")
         check("k2_plane_stencil_kernel" in text, "the trace does not name K2's kernel")
         del model, pc, step, G, m, res, text
 

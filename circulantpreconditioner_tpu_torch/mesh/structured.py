@@ -19,8 +19,10 @@ from __future__ import annotations
 import numpy as np
 
 from circulantpreconditioner_tpu_torch.mesh.core import INTERIOR, Mesh
+from circulantpreconditioner_tpu_torch.utils.profiling import host_spanned
 
 
+@host_spanned("port.setup.mesh")
 def cartesian_mesh(
     bounds,  # ((x0,x1), (y0,y1), (z0,z1)) truncated to dim entries
     n,  # (nx[, ny[, nz]])

@@ -23,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 
 from circulantpreconditioner_tpu_torch.mesh.core import INTERIOR, Mesh
+from circulantpreconditioner_tpu_torch.utils.profiling import host_spanned
 
 # local vertex numbering of the 6 quad faces of a hexahedron with vertices
 # ordered (x fastest): 0:(0,0,0) 1:(1,0,0) 2:(1,1,0) 3:(0,1,0)
@@ -217,6 +218,7 @@ def _fast_build_homogeneous(points, cells_arr, default_group, name):
     return mesh
 
 
+@host_spanned("port.setup.mesh")
 def build_mesh_from_cells(points: np.ndarray, cells, cell_faces=None,
                           default_group: str = "Wall", name: str = "unstructured") -> Mesh:
     """Face-major mesh from cells given by their vertex ids. With `cell_faces`

@@ -26,6 +26,7 @@ import torch
 
 from circulantpreconditioner_tpu_torch.utils.device import synchronize
 from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
+from circulantpreconditioner_tpu_torch.utils.profiling import host_span, host_spanned
 
 
 @dataclass
@@ -43,6 +44,7 @@ def _host(v):
     return v.tolist() if isinstance(v, torch.Tensor) else v
 
 
+@host_spanned("port.time_loop")
 def run_time_loop(
     step: Callable,  # U -> (U_new, dnorm[, extra...])
     U0: torch.Tensor,
@@ -59,7 +61,9 @@ def run_time_loop(
     """chunk > 1 runs that many steps per host synchronisation. Per-step
     dnorms still come back for the stationarity test; if it trips mid-chunk
     the loop stops with the chunk-end state (the extra steps past a
-    stationary point are no-ops by definition)."""
+    stationary point are no-ops by definition). The loop runs in the host
+    span "port.time_loop", its host work between steps or chunks in
+    "port.loop.host" (utils/profiling.py)."""
     if chunk is not None and chunk > 1:
         return _run_time_loop_chunked(step, U0, dt, tmax=tmax, ntmax=ntmax,
                                       precision=precision, chunk=chunk,
@@ -83,27 +87,29 @@ def run_time_loop(
                 dnorm = global_norms(torch.as_tensor(dnorm).reshape(1))[0]
         synchronize(U_new.device)
         dt_wall = time.perf_counter() - t0
-        U = U_new
-        t += dt
-        it += 1
-        dn = float(dnorm)
-        stationary = dn < precision
-        # implicit steppers return (.., iters, resnorm, converged): log a
-        # failed linear solve and continue, like the reference's KSP branch
-        if len(extras) >= 3 and not bool(extras[2]):
-            if log is not None:
-                log(f"!! step {it}: linear solver did NOT converge "
-                    f"(iters={int(extras[0])}, residual={float(extras[1]):.3e})")
-        if it % output_freq == 0 or it >= ntmax or stationary or t >= tmax:
-            result.step_seconds.append(dt_wall)
-            result.diagnostics.append({"it": it, "t": t, "dnorm": dn,
-                                       "extras": [_host(e) for e in extras]})
-            if log is not None:
-                log(f"-- step {it}, time {t:.6g}, dt {dt:.3g}, |dU| {dn:.3e}, "
-                    f"solve wall {dt_wall*1e3:.3f} ms")
-            if on_output is not None:
-                on_output(it, t, U.cpu().numpy(), extras)
-    result.state = U.clone() if captured else U
+        with host_span("port.loop.host"):
+            U = U_new
+            t += dt
+            it += 1
+            dn = float(dnorm)
+            stationary = dn < precision
+            # implicit steppers return (.., iters, resnorm, converged): log a
+            # failed linear solve and continue, like the reference's KSP branch
+            if len(extras) >= 3 and not bool(extras[2]):
+                if log is not None:
+                    log(f"!! step {it}: linear solver did NOT converge "
+                        f"(iters={int(extras[0])}, residual={float(extras[1]):.3e})")
+            if it % output_freq == 0 or it >= ntmax or stationary or t >= tmax:
+                result.step_seconds.append(dt_wall)
+                result.diagnostics.append({"it": it, "t": t, "dnorm": dn,
+                                           "extras": [_host(e) for e in extras]})
+                if log is not None:
+                    log(f"-- step {it}, time {t:.6g}, dt {dt:.3g}, |dU| {dn:.3e}, "
+                        f"solve wall {dt_wall*1e3:.3f} ms")
+                if on_output is not None:
+                    on_output(it, t, U.cpu().numpy(), extras)
+    with host_span("port.loop.host"):
+        result.state = U.clone() if captured else U
     result.time = t
     result.iterations = it
     result.stationary = stationary
@@ -134,26 +140,28 @@ def _run_time_loop_chunked(step, U0, dt, *, tmax, ntmax, precision, chunk, on_ou
             dnorms = torch.stack(dnorms)
             if global_norms is not None:
                 dnorms = global_norms(dnorms)
-        dnorms = dnorms.cpu().numpy()  # the chunk's one synchronisation
-        dt_wall = time.perf_counter() - t0
-        it += n
-        t += n * dt
-        hit = np.nonzero(dnorms < precision)[0]
-        stationary = hit.size > 0
-        dn = float(dnorms[hit[0]] if stationary else dnorms[-1])
-        last_extras = [_host(e) for e in extras]
-        if len(last_extras) >= 3 and not bool(last_extras[2]):
+        with host_span("port.loop.host"):
+            dnorms = dnorms.cpu().numpy()  # the chunk's one synchronisation
+            dt_wall = time.perf_counter() - t0
+            it += n
+            t += n * dt
+            hit = np.nonzero(dnorms < precision)[0]
+            stationary = hit.size > 0
+            dn = float(dnorms[hit[0]] if stationary else dnorms[-1])
+            last_extras = [_host(e) for e in extras]
+            if len(last_extras) >= 3 and not bool(last_extras[2]):
+                if log is not None:
+                    log(f"!! step {it}: linear solver did NOT converge "
+                        f"(iters={int(last_extras[0])}, residual={float(last_extras[1]):.3e})")
+            result.step_seconds.append(dt_wall / n)
+            result.diagnostics.append({"it": it, "t": t, "dnorm": dn, "extras": last_extras})
             if log is not None:
-                log(f"!! step {it}: linear solver did NOT converge "
-                    f"(iters={int(last_extras[0])}, residual={float(last_extras[1]):.3e})")
-        result.step_seconds.append(dt_wall / n)
-        result.diagnostics.append({"it": it, "t": t, "dnorm": dn, "extras": last_extras})
-        if log is not None:
-            log(f"-- step {it}, time {t:.6g}, dt {dt:.3g}, |dU| {dn:.3e}, "
-                f"wall/step {dt_wall / n * 1e3:.3f} ms ({n}-step device chunk)")
-        if on_output is not None:
-            on_output(it, t, U.cpu().numpy(), last_extras)
-    result.state = U.clone() if captured else U
+                log(f"-- step {it}, time {t:.6g}, dt {dt:.3g}, |dU| {dn:.3e}, "
+                    f"wall/step {dt_wall / n * 1e3:.3f} ms ({n}-step device chunk)")
+            if on_output is not None:
+                on_output(it, t, U.cpu().numpy(), last_extras)
+    with host_span("port.loop.host"):
+        result.state = U.clone() if captured else U
     result.time = t
     result.iterations = it
     result.stationary = stationary

@@ -28,6 +28,7 @@ from circulantpreconditioner_tpu_torch.ops.csr import CSRMatrix
 from circulantpreconditioner_tpu_torch.solvers.gmres import make_gmres
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
 from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
+from circulantpreconditioner_tpu_torch.utils.profiling import device_span, host_spanned
 
 
 def spherical_explosion_scalar(mesh: Mesh, inside: float = 650.0, outside: float = 600.0,
@@ -50,7 +51,9 @@ def _direct_step(solver, u):
 
 
 def _identity_plus(D, u):
-    return u + D(u)
+    """The implicit operator I + D: the device span "port.op"."""
+    with device_span("port.op", u.device):
+        return u + D(u)
 
 
 class TransportEquation:
@@ -74,12 +77,14 @@ class TransportEquation:
             device=self.device, dtype=self.dtype)
 
     @cached_property
+    @host_spanned("port.setup.operator")
     def divergence(self) -> CSRMatrix:
         """D such that (I + D)uⁿ⁺¹ = uⁿ (implicit) / uⁿ⁺¹ = uⁿ − D uⁿ (explicit)."""
         return transport_divergence_csr(self.mesh, self.dt, self.velocity, device=self.device,
                                         dtype=self.dtype, boundary=self.boundary)
 
     @cached_property
+    @host_spanned("port.setup.operator")
     def fft_operator(self) -> CirculantTransportOperator:
         """The circulant direct solver for I + D on a structured grid, taken
         as periodic whatever its boundary groups (as the reference FFT driver)."""

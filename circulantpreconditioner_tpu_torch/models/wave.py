@@ -42,6 +42,7 @@ from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix
 from circulantpreconditioner_tpu_torch.solvers.gmres import make_gmres
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
 from circulantpreconditioner_tpu_torch.utils.graphs import CapturedStep
+from circulantpreconditioner_tpu_torch.utils.profiling import host_spanned
 
 P0 = 155e5  # reference pressure (pressurised vessel), WaveSystem.hxx:16
 C0 = 700.0  # sound speed, WaveSystem.hxx:17
@@ -91,6 +92,7 @@ class WaveSystem:
             device=self.device, dtype=self.dtype)
 
     @cached_property
+    @host_spanned("port.setup.operator")
     def divergence(self) -> BSRMatrix:
         return wave_divergence_bsr(self.mesh, self.dt, self.c0, device=self.device,
                                    dtype=self.dtype)
@@ -131,6 +133,7 @@ class WaveSystem:
             cells_per_site=self.cells_per_site)
 
     @cached_property
+    @host_spanned("port.setup.operator")
     def varying_operator(self):
         """D as a VaryingStencilOperator on the mesh's topology grid (of
         sites: M = (dim+1)·cells_per_site). Built once: at 64³ the host build
@@ -139,6 +142,7 @@ class WaveSystem:
         return self._varying()
 
     @cached_property
+    @host_spanned("port.setup.operator")
     def normal_operator(self):
         """The wave normal form of `varying_operator`, or None where the
         decomposition fails or a site holds several cells."""

@@ -30,6 +30,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from circulantpreconditioner_tpu_torch.utils.profiling import host_spanned
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
@@ -52,10 +54,13 @@ _SIGNATURES = {
     "k4_tier_matmul": [_P] * 3 + [_I, _L, _I, _L, _I] + [_L] * 4 + [_I, _I, _I, _P],
     "k4_row_words": [_I],
     "k4_error_string": [_I],
+    "span_mark": [_P, _I, _I, _I, _I, _P, ctypes.POINTER(ctypes.c_void_p)],
+    "span_set_enabled": [_P, ctypes.POINTER(ctypes.c_void_p), _I, _I],
+    "span_error_string": [_I],
 }
 _RESTYPES = {"k1_error_string": ctypes.c_char_p, "k1_scratch_floats": _L,
              "k2_error_string": ctypes.c_char_p, "k3_error_string": ctypes.c_char_p,
-             "k4_error_string": ctypes.c_char_p}
+             "k4_error_string": ctypes.c_char_p, "span_error_string": ctypes.c_char_p}
 
 
 def _sources() -> list[Path]:
@@ -118,6 +123,7 @@ def build(force: bool = False) -> tuple[Path, float]:
 
 
 @functools.lru_cache(maxsize=1)
+@host_spanned("port.setup.kernels")
 def load_library() -> ctypes.CDLL:
     """Build if needed, load, and declare every entry point's signature."""
     path, _ = build()

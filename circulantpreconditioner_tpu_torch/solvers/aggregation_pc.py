@@ -24,6 +24,7 @@ inverse (one matmul). Two hierarchies:
 
 from __future__ import annotations
 
+import contextlib
 import functools
 from dataclasses import dataclass
 from typing import Callable
@@ -33,6 +34,7 @@ import torch
 
 from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix
 from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
+from circulantpreconditioner_tpu_torch.utils.profiling import device_span, host_spanned
 
 
 @dataclass
@@ -178,8 +180,10 @@ def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
     for _ in range(n_smooth[0] - 1):
         z = z + smooth(L, omega, r - A(z))
     rc = restrict(L, r - A(z))
-    z = z + prolong(L, _vcycle(levels, bot_inv, n_smooth, omega, l + 1, rc, fm=fm,
-                               bot_b=bot_b))
+    # from level 0, every coarser level and the bottom solve: "port.pc.coarse"
+    with (device_span("port.pc.coarse", r.device) if l == 0 else contextlib.nullcontext()):
+        zc = _vcycle(levels, bot_inv, n_smooth, omega, l + 1, rc, fm=fm, bot_b=bot_b)
+    z = z + prolong(L, zc)
     for _ in range(n_smooth[1]):
         z = z + smooth(L, omega, r - A(z))
     return z
@@ -204,6 +208,7 @@ class AggregationVCyclePC:
         self.b = int(b) if b is not None else (levels[-1].b if levels else 1)
 
     @classmethod
+    @host_spanned("port.setup.pc")
     def from_bsr(cls, D: BSRMatrix, A0_apply=None, shift: float = 1.0, factor: int = 4,
                  bottom_max: int = 1200, n_smooth=(1, 1), omega: float = 1.0,
                  dtype: torch.dtype | None = None, max_levels: int = 10, window_G: int = 8):
@@ -257,6 +262,7 @@ class GridVCyclePC(AggregationVCyclePC):
     """The geometric-Galerkin grid V-cycle; see the module docstring."""
 
     @classmethod
+    @host_spanned("port.setup.pc")
     def from_grid_model(cls, D: BSRMatrix, shape_xyz, cells_per_site: int = 1,
                         A0_apply=None, A0_apply_fm=None, shift: float = 1.0,
                         bottom_max: int = 600, n_smooth=(1, 1), omega: float = 0.8,

@@ -46,6 +46,7 @@ from circulantpreconditioner_tpu_torch.ops.dft_matmul import (
     MatmulCirculantSolver,
 )
 from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
+from circulantpreconditioner_tpu_torch.utils.profiling import host_spanned
 
 PROJECTIONS = ("auto", "sample", "volume", "identity")
 WINDOW_MAX_BYTES = 256 * 2**20
@@ -116,6 +117,7 @@ def _cell_volume_samples(mesh: Mesh, levels: int = 1):
     return out
 
 
+@host_spanned("port.setup.pc")
 def build_projection_matrices(mesh: Mesh, n_xyz, bbox, samples_per_axis: int = 3, *,
                               device: torch.device, dtype: torch.dtype,
                               method: str = "sample") -> tuple[CSRMatrix, CSRMatrix]:

@@ -49,6 +49,7 @@ from circulantpreconditioner_tpu_torch.utils.graphs import (
     GraphSet,
     masked_update,
 )
+from circulantpreconditioner_tpu_torch.utils.profiling import device_span
 
 # iterations the host queues before it reads the flags of the oldest (the
 # results do not depend on it: the CPU tests set a solver's `_lookahead`)
@@ -64,6 +65,17 @@ class KrylovResult(NamedTuple):
 
 def _identity(r):
     return r
+
+
+def _in_span(name: str):
+    """Run a GMRES step function inside the device span `name`."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def spanned(self, *args):
+            with device_span(name, self.b.device):
+                fn(self, *args)
+        return spanned
+    return wrap
 
 
 def _combine(c: torch.Tensor, Vj: torch.Tensor) -> torch.Tensor:
@@ -151,9 +163,13 @@ class GMRES:
     def _project(self, Vj: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         return Vj @ w if self.allreduce is None else self.allreduce(Vj @ w)
 
+    def _precondition(self, r: torch.Tensor) -> torch.Tensor:
+        with device_span("port.pc", r.device):
+            return self.M(r)
+
     def _residual(self) -> torch.Tensor:
         r = self.b - self.A(self.x)
-        return r if self.right else self.M(r)
+        return r if self.right else self._precondition(r)
 
     # --- buffers ------------------------------------------------------------
     def _setup(self, b: torch.Tensor) -> None:
@@ -184,9 +200,12 @@ class GMRES:
         self._key = None
 
     # --- step functions (utils/graphs.py): no arguments, static buffers -----
+    # each inside a device span (utils/profiling.py): the cycle's bookkeeping,
+    # the operator and PC apply, the orthogonalisation
+    @_in_span("port.gmres.cycle")
     def _init(self) -> None:
         """tol, dtol and ‖r0‖ (the JAX solver's res0), into slot m."""
-        b_pre = self.b if self.right else self.M(self.b)
+        b_pre = self.b if self.right else self._precondition(self.b)
         bnorm = self._norm(b_pre)
         self.tol.copy_(torch.clamp(bnorm * self.rtol, min=self.atol))
         self.dtol.copy_(torch.clamp(bnorm, min=self.eps) * self.divtol)
@@ -197,6 +216,7 @@ class GMRES:
         _flag_row(self.ring.flags, one, one, res0, self.it, self.tol,
                   torch.full_like(self.dtol, float("inf")))
 
+    @_in_span("port.gmres.cycle")
     def _start(self) -> None:
         """A restart cycle's first basis row and reset Q, H, j, res, active."""
         r = self._residual()
@@ -210,10 +230,13 @@ class GMRES:
         self.res.copy_(beta)
         self.active.copy_((beta >= self.tol) & (beta <= self.dtol) & (self.it < self.maxiter))
 
+    @_in_span("port.gmres.apply")
     def _precond_op(self) -> None:
         v = self.vin
-        self.w.copy_(self.A(self.M(v)) if self.right else self.M(self.A(v)))
+        self.w.copy_(self.A(self._precondition(v)) if self.right
+                     else self._precondition(self.A(v)))
 
+    @_in_span("port.gmres.ortho")
     def _arnoldi(self, j: int) -> None:
         """Inner index j: CGS2 against V[:j+1], the Givens update, the
         stopping tests, the next row into `vin`; masked by `active`."""
@@ -248,6 +271,7 @@ class GMRES:
         self.vin.copy_(self.V[j + 1])
         _flag_row(self.ring.flags, act, self.active, res, self.j, self.tol, self.dtol)
 
+    @_in_span("port.gmres.cycle")
     def _finish(self, j: int) -> None:
         """Solve R y = g on the active j×j block (|R_ii| < eps → eps, as the
         JAX solver), x += V[:j]ᵀ y (M of it for side="right"), it += j."""
@@ -257,7 +281,7 @@ class GMRES:
         g = self.beta * self.Q[:j, 0]
         y = torch.linalg.solve_triangular(R, g.unsqueeze(1), upper=True).squeeze(1)
         corr = _combine(y, self.V[:j])
-        self.x.add_(self.M(corr) if self.right else corr)
+        self.x.add_(self._precondition(corr) if self.right else corr)
         self.it.add_(j)
 
     # --- the host loop --------------------------------------------------------

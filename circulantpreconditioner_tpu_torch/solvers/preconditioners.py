@@ -19,6 +19,7 @@ import torch
 
 from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix, CSRMatrix
 from circulantpreconditioner_tpu_torch.solvers.gmres import _identity
+from circulantpreconditioner_tpu_torch.utils.profiling import device_span
 
 
 def identity() -> Callable[[torch.Tensor], torch.Tensor]:
@@ -93,7 +94,8 @@ def additive(*appliers: Callable):
 
 
 def _multiplicative_apply(A, coarse, smoother, r):
-    z = coarse(r)
+    with device_span("port.pc.coarse", r.device):
+        z = coarse(r)
     return z + smoother(r - A(z))
 
 

@@ -38,8 +38,13 @@ as CUDA graphs captured from its plain PyTorch code:
   a lookahead queued past the stop runs masked and launches its kernels all
   the same: they are counted, and `STATS.masked_launches` holds them apart.
 - `STATS` sums over all solves and steps: iterations kept and masked, the
-  masked iterations' launches, graph replays, eager calls, host waits,
-  captures and the seconds they took.
+  masked iterations' launches, graph replays, eager calls, host waits and
+  the seconds they blocked, captures and the seconds they took; its
+  snapshot adds the device spans' accumulators (utils/profiling.py).
+- Device spans in a graph: a `GraphSet` captures their marker kernels as
+  nodes and keeps the graph (`keep_graph`) to reach them; it enables them
+  on a graph's first replay under an active profiler and disables them on
+  its first replay after the profiler stops.
 
 NCCL collectives (parallel/mesh_utils.py) are captured like any other work:
 they issue on the capturing stream, with split sizes fixed when the step is
@@ -55,6 +60,13 @@ from typing import Callable, Hashable
 
 import numpy as np
 import torch
+
+from circulantpreconditioner_tpu_torch.utils.profiling import (
+    SPANS,
+    host_span,
+    host_spanned,
+    tracing,
+)
 
 
 def _kernel_classes() -> tuple:
@@ -90,15 +102,19 @@ class SolveStats:
     replays: int = 0  # graph replays
     eager_calls: int = 0  # step functions run eagerly (on the CPU, uncaptured, warm-ups)
     waits: int = 0  # host waits on a flag event
+    wait_seconds: float = 0.0  # host seconds blocked in those waits
     captures: int = 0
     capture_seconds: float = 0.0  # warm-up and capture of the graphs
 
     def reset(self) -> None:
         for f in fields(self):
             setattr(self, f.name, f.default)
+        SPANS.reset()
 
     def snapshot(self) -> dict:
-        return {f.name: getattr(self, f.name) for f in fields(self)}
+        """The counters, and the device spans' (`span_*` keys, present with
+        zeros before any span has run)."""
+        return {**{f.name: getattr(self, f.name) for f in fields(self)}, **SPANS.snapshot()}
 
 
 STATS = SolveStats()
@@ -120,6 +136,23 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
     return _CAPTURE_STREAMS[key]
 
 
+class _Graph:
+    """A captured step function: its graph, the K1 to K4 launches it holds,
+    and its device spans' marker nodes, enabled while `traced`."""
+
+    __slots__ = ("graph", "counts", "markers", "traced")
+
+    def __init__(self, graph: torch.cuda.CUDAGraph, counts: tuple[int, ...], markers: list):
+        self.graph, self.counts, self.markers, self.traced = graph, counts, markers, True
+        self.follow_profiler()
+
+    def follow_profiler(self) -> None:
+        """Enable the markers while a profiler runs, disable them after."""
+        if self.markers and self.traced != tracing():
+            self.traced = not self.traced
+            SPANS.set_enabled(self.graph, self.markers, self.traced)
+
+
 class GraphSet:
     """Named step functions of one solver, captured as CUDA graphs on the card
     (see the module docstring). `len()` is the number of graphs held."""
@@ -127,7 +160,7 @@ class GraphSet:
     def __init__(self, device: torch.device):
         self.capture = CAPTURE and device.type == "cuda"
         self.device = device
-        self._graphs: dict[Hashable, tuple[torch.cuda.CUDAGraph, tuple[int, ...]]] = {}
+        self._graphs: dict[Hashable, _Graph] = {}
         self._pool = None
 
     def __len__(self) -> int:
@@ -149,16 +182,18 @@ class GraphSet:
         entry = self._graphs.get(key)
         if entry is None:
             return self._warm_up_and_capture(key, fn)
-        graph, counts = entry
-        graph.replay()
+        entry.follow_profiler()
+        entry.graph.replay()
         STATS.replays += 1
-        credit(counts)
-        return counts
+        credit(entry.counts)
+        return entry.counts
 
+    @host_spanned("port.capture")
     def _warm_up_and_capture(self, key: Hashable, fn: Callable[[], None]) -> tuple[int, ...]:
         t0 = time.perf_counter()
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
+        SPANS.buffer(self.device)  # the markers' buffer, made outside any capture
         current = torch.cuda.current_stream(self.device)
         side = _capture_stream(self.device)
         side.wait_stream(current)
@@ -166,8 +201,10 @@ class GraphSet:
             before = kernel_launches()
             fn()  # this call's work, and the warm-up before capture
             ran = kernel_launches()
-            graph = torch.cuda.CUDAGraph()
+            graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept: the markers are its nodes
+            markers = []
             graph.capture_begin(pool=self._pool)
+            SPANS.capture_nodes = markers
             try:
                 fn()
             except BaseException:
@@ -176,11 +213,14 @@ class GraphSet:
                 except RuntimeError:
                     pass  # the capture was invalidated; the first error says why
                 raise
+            finally:
+                SPANS.capture_nodes = None
             graph.capture_end()
+            graph.instantiate()
             counts = _diff(kernel_launches(), ran)
             credit(counts, -1)  # a capture launches nothing
         current.wait_stream(side)
-        self._graphs[key] = (graph, counts)
+        self._graphs[key] = _Graph(graph, counts, markers)
         STATS.eager_calls += 1
         STATS.captures += 1
         STATS.capture_seconds += time.perf_counter() - t0
@@ -251,7 +291,8 @@ class FlagRing:
     """`slots` rows of `width` float64 flags on their way to the host. A step
     function writes `flags` (a device tensor); `post(slot)` enqueues its copy
     into the slot and, on the card, records the slot's event; `read(slot)`
-    waits on that event (a host wait, counted in STATS) and returns the row."""
+    waits on that event (a host wait, counted in STATS with the seconds it
+    blocked) and returns the row."""
 
     def __init__(self, slots: int, width: int, device: torch.device):
         self.on_card = device.type == "cuda"
@@ -269,7 +310,10 @@ class FlagRing:
 
     def read(self, slot: int) -> np.ndarray:
         if self.on_card:
-            self.events[slot].synchronize()
+            with host_span("port.flag_wait"):
+                t0 = time.perf_counter()
+                self.events[slot].synchronize()
+                STATS.wait_seconds += time.perf_counter() - t0
             STATS.waits += 1
         return self.host[slot].numpy().copy()
 
