@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's main paths, with kernels K1 to K4
+"""GPU smoke run of the PyTorch port's main paths, with kernels K1 to K5
 checked and timed.
 
     python3 chip_smoke.py
@@ -7,7 +7,7 @@ Needs one CUDA GPU (exits 1 without one) and the repository beside this file.
 Phases, one stdout line each (more for the drivers' own logs):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build K1 to K4 (csrc/*.cu) from the sources, one nvcc per source,
+2. build K1 to K5 (csrc/*.cu) from the sources, one nvcc per source,
    timed; ptxas's report of K1 and K3; the count of tensor-core instructions
    (HMMA, HGMMA) in the SASS of each of K3's float32 kernels (cuobjdump),
    which must not be 0;
@@ -232,9 +232,23 @@ Phases, one stdout line each (more for the drivers' own logs):
    wall 64³ DCT direct step at "high" under its tier's gate 1e-3; and the
    Kershaw 16³ dct2l, dct2lm and circulant2l (use_matmul_dft, the JAX
    default) GMRES counts at "high" and in fp32 beside the JAX suite's r05.
-Paths G to J launch none of K1 to K4, phase 20's sharded drivers none of K1
-to K3 (circulant2l's slab solve runs K4 at "high"); their launch counts are
-printed and checked. K1 to K4 count their launches per graph replay
+26. kernel K5 (csrc/vcycle_sweep.cu, the grid V-cycle's levels below the
+   fine one) on path D's hierarchy at Kershaw 64³ (its 32³ and 16³ Galerkin
+   levels, float32): each stage (smoothing, residual and restriction,
+   prolongation and post-smoothing; the restriction and the sweep in both
+   layouts of the coarse vector, and the sweep without prolongation)
+   against its plain version in aggregation_pc.py, max|y_K5 − y_plain| ≤
+   1e-5 · max|y_plain|; a whole apply_fm against the same hierarchy on the
+   V-cycle's generic stages (1e-4), with three K5 launches a level; each
+   stage, and the coarse part of an apply (six K5 launches and the bottom
+   gemv), timed by CUDA-graph replay beside its plain version and its bound
+   by bytes. Phase 9 checks K5's launches on path D (three a level visit,
+   two fused visits and none plain a V-cycle apply), phase 18 on path J
+   (three a fused visit, none plain).
+Paths G to J launch none of K1 to K4 (path J's grid V-cycle runs its levels
+below the site level in K5), phase 20's sharded drivers none of K1 to K3
+(circulant2l's slab solve runs K4 at "high"); their launch counts are
+printed and checked. K1 to K5 count their launches per graph replay
 (utils/graphs.py). The iterations a
 solve queued past its stop (utils.graphs.STATS.masked) run masked and
 launch their kernels all the same: the counts hold them, each check adds
@@ -248,7 +262,9 @@ numbers at the 128³ and 100³ stage shapes (the top-level ones are the 128³
 stage's); `bound_ms` is the least time of the function each kernel computes,
 by its cheapest known algorithm, and `algorithm_bound_ms` that of the kernel's
 own algorithm; `masked_launches` is the part of `launches` made by iterations
-queued past a stop), and as the last line
+queued past a stop; K5's `ms`, `plain_ms` and `bound_ms` are those of the
+coarse part of one 64³ V-cycle apply, its `stages` each stage's at 32³ and
+16³, and it has no library counterpart), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero without that line.
 """
@@ -527,6 +543,7 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
         plane_stencil_cuda,
     )
     from circulantpreconditioner_tpu_torch.ops.stencil import WaveNormalStencilOperator
+    from circulantpreconditioner_tpu_torch.ops.vcycle_sweep import VCycleSweepKernel
     from circulantpreconditioner_tpu_torch.solvers import make_gmres
     from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
 
@@ -631,11 +648,12 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
 
         # --- 9: main path D, the implicit wave driver with the grid V-cycle -
         PlaneStencilMatvec.launches = FusedCirculantSolver.launches = 0
+        VCycleSweepKernel.launches = 0
         t0 = time.perf_counter()
         res_i, snap = solve_run(lambda: wave_implicit.main(common + ["--ntmax", "2", "--pc",
                                                                      "gridmg"]))
         wall_i = time.perf_counter() - t0
-        k2_i = PlaneStencilMatvec.launches
+        k2_i, k5_i = PlaneStencilMatvec.launches, VCycleSweepKernel.launches
         its = [d["extras"][0] for d in res_i.diagnostics]
         conv = [d["extras"][2] for d in res_i.diagnostics]
         expected = k2_expected_launches(its, pc_fine_applies=2, masked=snap["masked"])
@@ -650,6 +668,16 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
               f"converged {conv}")
         check(k2_i == expected, f"wave_implicit gridmg: {k2_i} K2 launches, expected "
               f"{expected} from the iterations {its} and {snap['masked']} masked")
+        # K5: the 32^3 and 16^3 levels of every V-cycle apply, three launches each
+        pc_applies = (k2_expected_launches(its, 1, masked=snap["masked"])
+                      - k2_expected_launches(its, 0, masked=snap["masked"]))
+        fused, plain = snap["vcycle_levels_fused"], snap["vcycle_levels_plain"]
+        print(f"[9 main path D] K5 launches {k5_i} for {pc_applies} V-cycle applies: coarse "
+              f"level visits fused {fused}, plain {plain} (2 fused an apply, 3 launches a "
+              f"visit expected)", flush=True)
+        check(fused == 2 * pc_applies and plain == 0 and k5_i == 3 * fused,
+              f"wave_implicit gridmg: {k5_i} K5 launches, level visits fused {fused} and plain "
+              f"{plain}, for {pc_applies} V-cycle applies")
         record_loop("D", snap, its=its, first_ms=res_i.step_seconds[0] * 1e3,
                     capture_s=snap["capture_seconds"])
         check(bool(torch.isfinite(res_i.state).all()), "wave_implicit: non-finite state")
@@ -801,7 +829,7 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
             "max_abs_err": k2_err, "ms": gms["K2"], "plain_ms": gms["K2 plain"],
             "events_ms": ms["K2"], "bound_ms": k2_bound, "bound_by": k2_by,
             "algorithm_bound_ms": k2_bound, "library_ms": lib_graph}, mesh, mi, {
-                "its": its, "k2": k2_i, "state": res_i.state, "state_c": U_e}
+                "its": its, "k2": k2_i, "k5": k5_i, "state": res_i.state, "state_c": U_e}
 
 
 def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
@@ -1196,10 +1224,10 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
 
 
 def kernel_launches() -> dict[str, int]:
-    """The launch counters of K1, K2, K3 and K4."""
+    """The launch counters of K1, K2, K3, K4 and K5."""
     from circulantpreconditioner_tpu_torch.utils import graphs
 
-    return dict(zip(("K1", "K2", "K3", "K4"), graphs.kernel_launches()))
+    return dict(zip(("K1", "K2", "K3", "K4", "K5"), graphs.kernel_launches()))
 
 
 def reset_kernel_launches() -> None:
@@ -1840,8 +1868,9 @@ def slice6_phases(dev: torch.device, smi: str) -> None:
 
 def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     """Phase 18: main path J, the tet meshes and the supercell path. No TPU
-    kernel lies on it: it runs in plain PyTorch, and K1 to K3 must not
-    launch. Returns their launch counts on J (all 0)."""
+    kernel lies on it: it runs in plain PyTorch and K5 (the grid V-cycle's
+    coarse levels), and K1 to K4 must not launch. Returns the launch counts
+    on J (K1 to K4 all 0)."""
     import functools
 
     from circulantpreconditioner_tpu_torch.drivers import wave_explicit, wave_implicit
@@ -1952,6 +1981,7 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     Dmv = wi.divergence.matvec
     G0 = G = wi.pack_fm(wi.initial_state()).reshape(-1)
     its, conv, walls, true_res, snaps = [], [], [], [], []
+    k5_0 = kernel_launches()["K5"]
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -1964,6 +1994,13 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
         its.append(res.iters)
         conv.append(res.converged)
         G = res.x
+    k5_j = kernel_launches()["K5"] - k5_0
+    fused = sum(sn["vcycle_levels_fused"] for sn in snaps)
+    plain = sum(sn["vcycle_levels_plain"] for sn in snaps)
+    print(f"[18 main path J] K5 launches in the two solves {k5_j}: level visits below the "
+          f"site level fused {fused}, plain {plain} (3 launches a fused visit)", flush=True)
+    check(fused > 0 and plain == 0 and k5_j == 3 * fused,
+          f"path J: {k5_j} K5 launches, level visits fused {fused} and plain {plain}")
     # the first step again, warm: bench_suite.py times this solve from U0 on the TPU
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2036,9 +2073,10 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
         f"graph replay" for k, f in forms.items()) + f"; {smi}", flush=True)
 
     launched = kernel_launches()
-    print(f"[18] K1 to K4 launches on path J: {launched} (0 expected: no TPU kernel lies on "
-          f"it); phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    check(not any(launched.values()), f"path J launched a kernel: {launched}")
+    print(f"[18] K1 to K5 launches on path J: {launched} (K1 to K4 0 expected: no TPU kernel "
+          f"lies on it); phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    check(not any(launched[k] for k in ("K1", "K2", "K3", "K4")),
+          f"path J launched a TPU kernel's port: {launched}")
     return launched
 
 
@@ -2332,7 +2370,7 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state,
     t_phase = time.perf_counter()
     rng = np.random.default_rng(20)
     f32 = dict(device=dev, dtype=torch.float32)
-    launched = {"K1": 0, "K2": 0, "K3": 0, "K4": 0}
+    launched = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
 
     def sharded_run(main, argv):
         """The driver captured (its steps, or its GMRES, as graph replays
@@ -2710,6 +2748,147 @@ def sharded_vcycle_phase(dev: torch.device, smi: str, dm) -> dict[str, int]:
     return launched
 
 
+# phase 26: kernel K5 at the main path's shapes
+TOL_K5 = 1e-5  # max|y_K5 − y_plain| / max|y_plain|, one stage
+TOL_K5_APPLY = 1e-4  # the same over a whole apply_fm: the stages' rounding carried through
+
+
+def k5_stage_cost(L, stage: str, zc: bool = False) -> tuple[float, float]:
+    """(flops, bytes) of one K5 stage on the level L in float32: m fields on
+    N sites, K stencil offsets, Nc sites on the next level. The smoothing
+    reads r and Dinv and writes z; the restriction reads r, z, the
+    coefficients and cnt_inv and writes the next level's right-hand side; the
+    sweep reads r, z, zc (when given), the coefficients and Dinv and writes z'."""
+    m, N, Nc = L.b, int(np.prod(L.shape_xyz)), int(np.prod(L.cshape_xyz))
+    K = len(L.stencil.offsets)
+    a_flops, a_bytes = 2.0 * K * m * m * N, 4.0 * K * m * m * N
+    if stage == "smooth":
+        return 2.0 * m * m * N, 4.0 * (2 * m * N + m * m * N)
+    if stage == "restrict":
+        return a_flops + 2.0 * m * N, a_bytes + 4.0 * (2 * m * N + Nc + m * Nc)
+    return (a_flops + 2.0 * m * m * N + 4.0 * m * N,
+            a_bytes + 4.0 * (3 * m * N + m * m * N + (m * Nc if zc else 0)))
+
+
+def k5_phase(dev: torch.device, smi: str, mi) -> dict:
+    """Phase 26: K5 against its plain versions on the levels below the fine
+    one of path D's grid V-cycle (Kershaw NW^3: the 32^3 and 16^3 Galerkin
+    levels, m = 4, float32): each stage, in the layouts the path uses and
+    the others, and a whole apply_fm against the same hierarchy on the
+    V-cycle's generic stages; each stage and the coarse part of an apply
+    timed by CUDA-graph replay beside its plain version and its bound.
+    Returns K5's entry of the kernels line, less its launches by path."""
+    import copy
+    import dataclasses
+
+    from circulantpreconditioner_tpu_torch.ops import vcycle_sweep as vs
+    from circulantpreconditioner_tpu_torch.solvers import aggregation_pc as ap
+    from circulantpreconditioner_tpu_torch.utils.graphs import STATS
+
+    t_phase = time.perf_counter()
+    f32 = torch.float32
+    pc = ap.GridVCyclePC.from_grid_model(mi.divergence, (NW,) * 3, A0_apply=mi.implicit_matvec(),
+                                         A0_apply_fm=mi.implicit_matvec_fm(), shift=1.0,
+                                         dtype=f32)
+    generic = copy.copy(pc)  # the same levels, their stencils taken away: the generic stages
+    generic.levels = tuple(dataclasses.replace(L, stencil=None) if isinstance(L, ap._GridLevel)
+                           else L for L in pc.levels)
+    coarse = [l for l in range(len(pc.levels)) if ap._fusable(pc.levels, l, f32, pc.n_smooth)]
+    check(coarse == [1, 2], f"K5: path D's hierarchy fuses levels {coarse}, not [1, 2]")
+    rng = np.random.default_rng(26)
+
+    def rand(n):
+        return torch.as_tensor(rng.standard_normal(n), dtype=f32, device=dev)
+
+    def err(got, want):
+        d = (got - want).abs().max().item()
+        return d, d / want.abs().max().item()
+
+    omega, worst, worst_abs, stages, errs = pc.omega, 0.0, 0.0, {}, []
+    for l in coarse:
+        L = pc.levels[l]
+        label = "x".join(map(str, L.shape_xyz))
+        N, Nc = int(np.prod(L.shape_xyz)), int(np.prod(L.cshape_xyz))
+        cm = l + 1 == len(pc.levels)  # the level above the dense bottom hands it cell-major
+        r, z, zc = rand(L.b * N), rand(L.b * N), rand(L.b * Nc)
+        # (K5, plain) pairs: the path's layout first (timed), then the other and the
+        # pre-smoothing sweep (checked only)
+        pairs = {
+            "smooth": (lambda: vs.smooth_cuda(L.Dinv, r, omega),
+                       lambda: ap._grid_smooth_fm(L, omega, r)),
+            "restrict": (lambda: vs.restrict_cuda(L.stencil, L.cnt_inv, L.cshape_xyz, r, z, cm),
+                         lambda: ap._restrict_plain(L, r, z, cm)),
+            "sweep": (lambda: vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, omega, r, z, zc, cm),
+                      lambda: ap._sweep_plain(L, omega, r, z, zc, cm)),
+            "restrict, other layout": (
+                lambda: vs.restrict_cuda(L.stencil, L.cnt_inv, L.cshape_xyz, r, z, not cm),
+                lambda: ap._restrict_plain(L, r, z, not cm)),
+            "sweep, other layout": (
+                lambda: vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, omega, r, z, zc, not cm),
+                lambda: ap._sweep_plain(L, omega, r, z, zc, not cm)),
+            "sweep, no prolongation": (
+                lambda: vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, omega, r, z),
+                lambda: ap._sweep_plain(L, omega, r, z)),
+        }
+        for name, (k5, plain) in pairs.items():
+            d_abs, d_rel = err(k5(), plain())
+            errs.append(f"{name} {label} {d_rel:.2e}")
+            worst, worst_abs = max(worst, d_rel), max(worst_abs, d_abs)
+            check(d_rel <= TOL_K5, f"K5 {name} at {label} is off its plain version: {d_rel:.3e}")
+            if "," in name:
+                continue
+            flops, nbytes = k5_stage_cost(L, name, zc=True)
+            b_ms, b_by = bound(flops, nbytes)
+            stages[f"{name} {label}"] = {"ms": graph_ms(k5), "plain_ms": graph_ms(plain),
+                                         "bound_ms": b_ms, "bound_by": b_by,
+                                         "mbytes": nbytes / 1e6, "max_rel_err": d_rel}
+    print(f"[26 K5] against its plain versions at Kershaw {NW}^3's levels, max|y_K5 - y_plain|"
+          f"/max|y_plain| (tol {TOL_K5:g}): " + "; ".join(errs), flush=True)
+
+    # a whole apply_fm: three K5 launches on each fused level
+    g = rand(4 * NW**3)
+    STATS.reset()
+    before = vs.VCycleSweepKernel.launches
+    y = pc.apply_fm(g)
+    torch.cuda.synchronize()
+    launched = vs.VCycleSweepKernel.launches - before
+    visits = (STATS.vcycle_levels_fused, STATS.vcycle_levels_plain)
+    d_abs, d_apply = err(y, generic.apply_fm(g))
+    print(f"[26 K5] apply_fm at Kershaw {NW}^3: {launched} K5 launches, level visits (fused, "
+          f"plain) {visits}; against the generic stages max|dy|/max|y| {d_apply:.3e} (tol "
+          f"{TOL_K5_APPLY:g})", flush=True)
+    check(launched == 3 * len(coarse) and visits == (len(coarse), 0),
+          f"K5: apply_fm launched {launched}, level visits {visits}")
+    check(d_apply <= TOL_K5_APPLY, f"K5: apply_fm off the generic stages by {d_apply:.3e}")
+
+    # the coarse part of an apply (the levels below the fine one and the
+    # bottom solve), as path D's span port.pc.coarse holds it
+    L1 = pc.levels[1]
+    rc = rand(L1.b * int(np.prod(L1.shape_xyz)))
+    part = {name: (lambda lv=lv: ap._vcycle(lv, pc.bot_inv, pc.n_smooth, omega, 1, rc, fm=True,
+                                            bot_b=pc.b))
+            for name, lv in (("K5", pc.levels), ("plain", generic.levels))}
+    nb = pc.bot_inv.shape[0]
+    part_flops = 2.0 * nb * nb
+    part_bytes = 4.0 * (nb * nb + 2 * nb)
+    for l in coarse:
+        for name in ("smooth", "restrict", "sweep"):
+            flops, nbytes = k5_stage_cost(pc.levels[l], name, zc=True)
+            part_flops, part_bytes = part_flops + flops, part_bytes + nbytes
+    part_ms = {name: graph_ms(fn) for name, fn in part.items()}
+    b_ms, b_by = bound(part_flops, part_bytes)
+    print("[26 K5 times] CUDA-graph replay of 20 calls, ms per call: " + "; ".join(
+        f"{k} {v['ms']:.5f} (plain {v['plain_ms']:.5f}, bound {v['bound_ms']:.5f}, "
+        f"{v['mbytes']:.2f} MB)" for k, v in stages.items())
+        + f"; the coarse part of a {NW}^3 apply (6 K5 launches and the {nb}^2 bottom gemv) "
+        f"{part_ms['K5']:.4f} ms, its plain stages {part_ms['plain']:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {part_bytes / 1e6:.1f} MB, held in the 50 MB L2 when warm); "
+        f"phase 26 took {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    return {"max_abs_err": worst_abs, "max_rel_err": worst, "apply_max_rel_err": d_apply,
+            "ms": part_ms["K5"], "plain_ms": part_ms["plain"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": None, "stages": stages}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -2747,7 +2926,7 @@ def main() -> int:
 
     lib_path, build_s = build.build(force=True)
     build.load_library()
-    print(f"[2 build] K1 to K4 built from csrc/ in {build_s:.2f} s", flush=True)
+    print(f"[2 build] K1 to K5 built from csrc/ in {build_s:.2f} s", flush=True)
     ptxas = lib_path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(ptxas):  # K1's and K3's register and shared-memory report
         if "Compiling entry function" in line and ("k3_cmm" in line or "k1_" in line):
@@ -3010,6 +3189,8 @@ def main() -> int:
     lap("23")
     k4 = precision_tier_phase(dev, smi)
     lap("25")
+    k5 = k5_phase(dev, smi, mi)
+    lap("26")
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
     d_path = "20 the sharded drivers (parallel/)"
     b_path = "23 bench.py flagship and bench_suite.py rows at 16^3"
@@ -3059,6 +3240,16 @@ def main() -> int:
         **k4, "launches_by_path": {k4_path: k4["launches"], j_path: j_launches["K4"],
                                    d_path: d_launches["K4"], b_path: b_launches["K4"],
                                    v_path: v_launches["K4"]},
+    }, {
+        "name": "vcycle_sweep (K5)",
+        "route": "cuda",
+        "source": "circulantpreconditioner_tpu_torch/csrc/vcycle_sweep.cu",
+        "replaces": "none: XLA fuses circulantpreconditioner_tpu/solvers/aggregation_pc.py "
+                    "_vcycle",
+        "launches": path_d["k5"],
+        **k5, "launches_by_path": {f"D wave_implicit gridmg {NW}^3": path_d["k5"],
+                                   j_path: j_launches["K5"], d_path: d_launches["K5"],
+                                   b_path: b_launches["K5"], v_path: v_launches["K5"]},
     }]}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(f"card: {smi}")

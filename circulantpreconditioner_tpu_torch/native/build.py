@@ -2,7 +2,8 @@
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
 
-compiles each `circulantpreconditioner_tpu_torch/csrc/*.cu` into an object,
+compiles each `circulantpreconditioner_tpu_torch/csrc/*.cu` (K1 to K5, the span
+marker) into an object,
 one nvcc process per source, all started together; `nvcc -shared` then links
 them into
 `circulantpreconditioner_tpu_torch/build/libcirculant_kernels-<hash>.so`, where
@@ -41,7 +42,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
-_IP = ctypes.POINTER(ctypes.c_int)  # a host int array (K1's plan)
+_IP = ctypes.POINTER(ctypes.c_int)  # a host int array (K1's plan, K5's grid)
+_PP = ctypes.POINTER(ctypes.c_void_p)  # a host pointer array (K5's coefficient fields)
+_LP = ctypes.POINTER(ctypes.c_longlong)  # a host int64 array (K5's offsets)
 # entry point → argtypes; restype is c_int (cudaError_t) unless listed below
 _SIGNATURES = {
     "k1_fused_circulant_solve": [_P] * 7 + [_IP] + [_I] * 5 + [_P],
@@ -54,13 +57,18 @@ _SIGNATURES = {
     "k4_tier_matmul": [_P] * 3 + [_I, _L, _I, _L, _I] + [_L] * 4 + [_I, _I, _I, _P],
     "k4_row_words": [_I],
     "k4_error_string": [_I],
+    "k5_smooth": [_P] * 3 + [_L, _I, ctypes.c_double, _I, _I, _P],
+    "k5_restrict": [_P, _P, _PP, _LP, _I, _P, _P, _IP] + [_I] * 4 + [_P],
+    "k5_sweep": [_P, _P, _P, _PP, _LP, _I, _P, _P, _IP, _I, _I, ctypes.c_double, _I, _I, _P],
+    "k5_error_string": [_I],
     "span_mark": [_P, _I, _I, _I, _I, _P, ctypes.POINTER(ctypes.c_void_p)],
     "span_set_enabled": [_P, ctypes.POINTER(ctypes.c_void_p), _I, _I],
     "span_error_string": [_I],
 }
 _RESTYPES = {"k1_error_string": ctypes.c_char_p, "k1_scratch_floats": _L,
              "k2_error_string": ctypes.c_char_p, "k3_error_string": ctypes.c_char_p,
-             "k4_error_string": ctypes.c_char_p, "span_error_string": ctypes.c_char_p}
+             "k4_error_string": ctypes.c_char_p, "k5_error_string": ctypes.c_char_p,
+             "span_error_string": ctypes.c_char_p}
 
 
 def _sources() -> list[Path]:

@@ -20,6 +20,19 @@ inverse (one matmul). Two hierarchies:
   K2 on the GPU for the Kershaw hexahedra). The ω = 0.8 damping is
   load-bearing: undamped block-Jacobi smoothing amplifies high-frequency
   error on the upwind wave operator.
+
+On the card, a grid level below the fine one whose operator is a 3D
+flat-layout varying stencil of m ≤ 8 runs as kernel K5 (ops/vcycle_sweep.py):
+a V(pre, post ≥ 1) visit is one smoothing launch, one residual-and-
+restriction launch, the next level, and one launch of prolongation and
+post-smoothing, each extra sweep one more; the level above the bottom
+writes the bottom's right-hand side in its cell-major order and reads its
+answer back in it. A CPU tensor runs the same stages in their plain PyTorch
+versions. A level whose coarser levels lack a field-major operator (a
+periodic grid_last level below it) keeps the V-cycle's generic stages, as do
+the fine level and the algebraic hierarchy's levels; `utils.graphs.STATS`
+counts the visits of levels below the fine one that K5 ran
+(`vcycle_levels_fused`) and that it did not (`_plain`).
 """
 
 from __future__ import annotations
@@ -32,8 +45,10 @@ from typing import Callable
 import numpy as np
 import torch
 
+from circulantpreconditioner_tpu_torch.ops import vcycle_sweep
 from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix
 from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
+from circulantpreconditioner_tpu_torch.utils.graphs import STATS
 from circulantpreconditioner_tpu_torch.utils.profiling import device_span, host_spanned
 
 
@@ -157,6 +172,75 @@ def _grid_prolong_fm(L: _GridLevel, zc: torch.Tensor) -> torch.Tensor:
     return g.reshape(L.b, 2 * cz, 2 * cy, 2 * cx)[:, :nz, :ny, :nx].reshape(-1)
 
 
+# the stages of a fused grid level on field-major flat vectors, L.stencil the
+# level's operator (L.A_fm): kernel K5 on CUDA tensors (ops/vcycle_sweep.py),
+# the plain versions below on the CPU; the smoothing's plain version is
+# _grid_smooth_fm
+
+
+def _restrict_plain(L: _GridLevel, r: torch.Tensor, z: torch.Tensor, cm: bool = False):
+    """The next level's right-hand side cnt_inv·Σ_box (r − A z), cell-major
+    (the dense bottom's order) when `cm`."""
+    rc = _grid_restrict_fm(L, r - L.A_fm(z))
+    return rc.reshape(L.b, -1).T.reshape(-1) if cm else rc
+
+
+def _sweep_plain(L: _GridLevel, omega: float, r: torch.Tensor, z: torch.Tensor,
+                 zc: torch.Tensor | None = None, zc_cm: bool = False) -> torch.Tensor:
+    """z' = z + P zc (zc cell-major when `zc_cm`; none when zc is None), then
+    z' + ω·Dinv·(r − A z')."""
+    if zc is not None:
+        z = z + _grid_prolong_fm(L, zc.reshape(-1, L.b).T.reshape(-1) if zc_cm else zc)
+    return z + _grid_smooth_fm(L, omega, r - L.A_fm(z))
+
+
+def _fused_smooth(L: _GridLevel, omega: float, r: torch.Tensor) -> torch.Tensor:
+    if r.is_cuda:
+        return vcycle_sweep.smooth_cuda(L.Dinv, r, omega)
+    return _grid_smooth_fm(L, omega, r)
+
+
+def _fused_restrict(L: _GridLevel, r: torch.Tensor, z: torch.Tensor, cm: bool = False):
+    if r.is_cuda:
+        return vcycle_sweep.restrict_cuda(L.stencil, L.cnt_inv, L.cshape_xyz, r, z, cm)
+    return _restrict_plain(L, r, z, cm)
+
+
+def _fused_sweep(L: _GridLevel, omega: float, r: torch.Tensor, z: torch.Tensor,
+                 zc: torch.Tensor | None = None, zc_cm: bool = False) -> torch.Tensor:
+    if r.is_cuda:
+        return vcycle_sweep.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, omega, r, z, zc, zc_cm)
+    return _sweep_plain(L, omega, r, z, zc, zc_cm)
+
+
+def _fusable(levels, l: int, dtype: torch.dtype, n_smooth) -> bool:
+    """Level l runs as fused stages: a grid level below the fine one whose
+    stencil K5 takes in `dtype`, a post-smoothing sweep to carry the
+    prolongation, and a field-major operator on every level below it (the
+    stages recurse field-major; a periodic grid_last level has none)."""
+    L = levels[l]
+    return (isinstance(L, _GridLevel) and L.stencil is not None and n_smooth[1] >= 1
+            and vcycle_sweep.takes(L.stencil, dtype)
+            and all(M.A_fm is not None for M in levels[l + 1:]))
+
+
+def _vcycle_fused(levels, bot_inv, n_smooth, omega, l, r, bot_b):
+    """One V-cycle from the fusable level l on a field-major r."""
+    L = levels[l]
+    # the dense bottom next: its right-hand side and answer stay cell-major
+    cm = l + 1 == len(levels) and not callable(bot_inv)
+    z = _fused_smooth(L, omega, r)
+    for _ in range(n_smooth[0] - 1):
+        z = _fused_sweep(L, omega, r, z)
+    rc = _fused_restrict(L, r, z, cm)
+    zc = bot_inv @ rc if cm else _vcycle(levels, bot_inv, n_smooth, omega, l + 1, rc, fm=True,
+                                         bot_b=bot_b)
+    z = _fused_sweep(L, omega, r, z, zc, cm)
+    for _ in range(n_smooth[1] - 1):
+        z = _fused_sweep(L, omega, r, z)
+    return z
+
+
 def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
     """One V-cycle from level l. bot_inv: the dense bottom inverse, or a
     callable that takes the bottom level's place (parallel/vcycle_dist.py:
@@ -169,6 +253,19 @@ def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
             return x.reshape(-1, bot_b).T.reshape(-1)
         return bot_inv @ r
     L = levels[l]
+    if _fusable(levels, l, r.dtype, n_smooth):
+        if r.is_cuda:
+            STATS.vcycle_levels_fused += 1
+        else:
+            STATS.vcycle_levels_plain += 1
+        if fm:
+            return _vcycle_fused(levels, bot_inv, n_smooth, omega, l, r, bot_b)
+        # cell-major: one relayout of the residual in, one of the correction out
+        z = _vcycle_fused(levels, bot_inv, n_smooth, omega, l, r.reshape(-1, L.b).T.reshape(-1),
+                          bot_b)
+        return z.reshape(L.b, -1).T.reshape(-1)
+    if l > 0:
+        STATS.vcycle_levels_plain += 1
     if isinstance(L, _GridLevel):
         smooth, restrict, prolong = ((_grid_smooth_fm, _grid_restrict_fm, _grid_prolong_fm) if fm
                                      else (_grid_smooth, _grid_restrict, _grid_prolong))
