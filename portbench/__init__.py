@@ -15,7 +15,11 @@ file of its own, found by name:
 - `routes/<route>.py`: how a route builds its stepper from the port's public
   API, as the port's driver builds it;
 - `metrics/<metric>.py`: the reader of one per-layer metric;
-- `limits/<cell>.json`: the limits of the comparison that decides `correct`.
+- `limits/<cell>.json`: the limits of the comparison that decides `correct`;
+- `reference/families/<family>.py`: the reference's geometry of a mesh
+  family other than the cartesian and Kershaw lattices;
+- `reference/kinds/<kind>.py`: a check kind other than `error` and
+  `direct_error`: the reference's answers, the readings and the control.
 
 `reference/` is the plain reference: frozen copies of the mesh generators
 and the upwind assembly, in NumPy and SciPy, that import nothing of the port.

@@ -37,10 +37,7 @@ def main(argv=None) -> int:
     import torch
 
     from portbench import spec, traffic
-    from portbench.reference import checks
-    from portbench.reference.control import control_answers
-    from portbench.reference.mesh import cell_centres
-    from portbench.reference.operators import implicit_operator
+    from portbench.reference import checks, family
     from portbench.routes import dtype_of
 
     device = torch.device(args.device)
@@ -48,9 +45,9 @@ def main(argv=None) -> int:
         print("no CUDA device", file=sys.stderr)
         return 2
     cell = spec.load_cell(args.workload)
-    kind, steps = cell.limits["check"], int(cell.mix["steps_per_request"])
-    shape = cell.config["mesh"]["n"]
-    make = traffic.StateMaker(cell.config, cell_centres(cell.config["mesh"]), device,
+    kind, mesh = cell.limits["check"], cell.config["mesh"]
+    check = checks.kind(kind, cell.config, cell.mix)
+    make = traffic.StateMaker(cell.config, family(mesh).cell_centres(mesh), device,
                               dtype_of(cell.config))
     inputs = {}
     for seed in args.seeds:
@@ -73,19 +70,15 @@ def main(argv=None) -> int:
     del inputs, make
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    A, _ = implicit_operator(cell.config, cell.mix["boundary"])
     summary = {"program": [], "control": []}
     for seed in args.seeds:
         u0 = host[seed]
         if args.control:
-            answers[seed]["control"] = control_answers(kind, A, u0, steps,
-                                                       gmres_cfg=cell.config.get("gmres"),
-                                                       shape_xyz=shape, device=device)
-        ref = (checks.implicit_solutions(A, u0, device) if kind == "error"
-               else checks.direct_chain(A, shape, u0, steps))
+            answers[seed]["control"] = check.control(u0, device)
+        ref = check.answers(u0, device)
         line = {"seed": seed}
         for side, u1 in answers[seed].items():
-            line[side] = float(max(checks.errors(u1, ref)))
+            line[side] = float(max(check.readings(u1, ref)))
             summary[side].append(line[side])
         print(json.dumps(line), flush=True)
     print(json.dumps({"workload": cell.name, "check": kind, "requests": args.requests,

@@ -10,14 +10,25 @@ answers only to judge them.
   applied to a unit vector, runs the chain by float64 FFTs (NumPy), checks
   its own first step's residual, and judges the chain's last state by the
   same relative error.
+
+Any other kind `<kind>` is a module of its own, reference/kinds/<kind>.py
+(its interface in reference/kinds/__init__.py), which builds its own
+operator from the configuration and the traffic mix. `kind` resolves a
+cell's check to a `Kind`, the one place that tells the two apart.
 """
 
 from __future__ import annotations
 
+import functools
+import importlib
+from types import ModuleType
+
 import numpy as np
 import torch
 
+from portbench.reference.control import implicit_tf32, np_tf32
 from portbench.reference.krylov import gmres, torch_csr
+from portbench.reference.operators import implicit_operator
 
 REF_RTOL = 1e-11
 REF_RESTART = 100
@@ -84,14 +95,82 @@ def _crnd(z: np.ndarray, rnd) -> np.ndarray:
     return rnd(z.real) + 1j * rnd(z.imag)
 
 
-def compare(kind: str, A, u0: np.ndarray, u1: np.ndarray, steps: int, *, shape_xyz,
-            device: torch.device) -> list[float]:
-    """The readings of the check `kind` for the requests whose inputs and
-    outputs are the columns of u0 and u1."""
-    if kind == "error":
-        if steps != 1:
+class Kind:
+    """A check bound to the configuration and traffic mix of one cell."""
+
+    def __init__(self, config: dict, mix: dict):
+        self.config, self.mix = config, mix
+
+    def answers(self, u0: np.ndarray, device: torch.device) -> np.ndarray:
+        """The reference's answers (n, k) to the requests whose inputs are
+        the columns of u0 (n, k), float64."""
+        raise NotImplementedError
+
+    def readings(self, u1: np.ndarray, ref: np.ndarray) -> list[float]:
+        """One reading per column of the program's answers u1 against `ref`."""
+        raise NotImplementedError
+
+    def control(self, u0: np.ndarray, device: torch.device) -> np.ndarray:
+        """The control's answers to the same requests (reference/control.py)."""
+        raise NotImplementedError
+
+    def compare(self, u0: np.ndarray, u1: np.ndarray, device: torch.device) -> list[float]:
+        """The readings for the requests whose inputs and outputs are the
+        columns of u0 and u1."""
+        return self.readings(u1, self.answers(u0, device))
+
+
+class BuiltIn(Kind):
+    """`error` or `direct_error` (see the module docstring), on the reference
+    operator of the configuration, assembled once, at its first use."""
+
+    def __init__(self, name: str, config: dict, mix: dict):
+        super().__init__(config, mix)
+        self.name, self.steps = name, int(mix["steps_per_request"])
+        if name == "error" and self.steps != 1:
             raise ValueError("the implicit check judges requests of one step")
-        return errors(u1, implicit_solutions(A, u0, device))
-    if kind == "direct_error":
-        return errors(u1, direct_chain(A, shape_xyz, u0, steps))
-    raise ValueError(f"unknown check {kind!r}")
+
+    @functools.cached_property
+    def A(self):
+        return implicit_operator(self.config, self.mix["boundary"])[0]
+
+    def answers(self, u0, device):
+        if self.name == "error":
+            return implicit_solutions(self.A, u0, device)
+        return direct_chain(self.A, self.config["mesh"]["n"], u0, self.steps)
+
+    def readings(self, u1, ref):
+        return errors(u1, ref)
+
+    def control(self, u0, device):
+        if self.name == "error":
+            return implicit_tf32(self.A, self.config["gmres"], u0, device)
+        return direct_chain(self.A, self.config["mesh"]["n"], u0, self.steps,
+                            rnd=np_tf32)
+
+
+class ModuleKind(Kind):
+    """A check kind of its own, the module reference/kinds/<kind>.py (its
+    interface in reference/kinds/__init__.py)."""
+
+    def __init__(self, module: ModuleType, config: dict, mix: dict):
+        super().__init__(config, mix)
+        self.module = module
+
+    def answers(self, u0, device):
+        return self.module.answers(self.config, self.mix, u0, device)
+
+    def readings(self, u1, ref):
+        return self.module.readings(u1, ref)
+
+    def control(self, u0, device):
+        return self.module.control(self.config, self.mix, u0, device)
+
+
+def kind(name: str, config: dict, mix: dict) -> Kind:
+    """The check `name` of a cell of this configuration and traffic mix: a
+    built-in kind, or the module portbench.reference.kinds.<name>, imported
+    here."""
+    if name in ("error", "direct_error"):
+        return BuiltIn(name, config, mix)
+    return ModuleKind(importlib.import_module(f"portbench.reference.kinds.{name}"), config, mix)

@@ -76,8 +76,8 @@ def cell_centres(mesh: dict) -> np.ndarray:
 class Geometry:
     shape: tuple[int, int, int]  # (nx, ny, nz)
     volume: np.ndarray  # (nC,)
-    S: np.ndarray  # (nC, 6, 3) outward area vectors of the local faces
-    neighbour: np.ndarray  # (nC, 6): the cell across each face, -1 on a wall
+    S: np.ndarray  # (nC, F, 3) outward area vectors of the local faces (F = 6 here)
+    neighbour: np.ndarray  # (nC, F): the cell across each face, -1 on a wall
 
     @property
     def n_cells(self) -> int:

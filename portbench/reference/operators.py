@@ -1,5 +1,7 @@
 """Frozen upwind assembly of the implicit operators A = I + D, in float64
-SciPy sparse form, from the reference's own geometry (reference/mesh.py).
+SciPy sparse form, from the reference's own geometry (the configuration's
+mesh family: reference/mesh.py or reference/families/; any number of faces
+a cell).
 
 A frozen copy of the port's `transport_divergence_csr` and
 `wave_divergence_bsr`. For a face of cell c with outward area vector S:
@@ -21,7 +23,8 @@ from __future__ import annotations
 import numpy as np
 import scipy.sparse as sp
 
-from portbench.reference.mesh import Geometry, geometry
+from portbench.reference import family
+from portbench.reference.mesh import Geometry
 
 
 def transport_dt(geo: Geometry, velocity, cfl: float) -> float:
@@ -34,7 +37,7 @@ def wave_dt(geo: Geometry, c0: float, cfl: float) -> float:
 
 def _blocks_to_bsr(diag: np.ndarray, off: np.ndarray, neighbour: np.ndarray) -> sp.bsr_matrix:
     """BSR of I + D from the diagonal blocks (nC, m, m) and the blocks
-    across each face (nC, 6, m, m), the faces without a neighbour dropped."""
+    across each face (nC, F, m, m), the faces without a neighbour dropped."""
     n_cells, m = diag.shape[0], diag.shape[1]
     keep = neighbour >= 0
     counts = 1 + keep.sum(axis=1)
@@ -48,7 +51,7 @@ def _blocks_to_bsr(diag: np.ndarray, off: np.ndarray, neighbour: np.ndarray) -> 
 def transport_operator(geo: Geometry, velocity, dt: float) -> sp.csr_matrix:
     """A = I + D of the upwind transport step (float64 CSR)."""
     a = np.asarray(velocity, dtype=np.float64)
-    un = geo.S @ a  # (nC, 6): S·a
+    un = geo.S @ a  # (nC, F): S·a
     coef = dt / geo.volume[:, None]
     coupled = geo.neighbour >= 0
     diag = (coef * np.maximum(un, 0.0) * coupled).sum(axis=1)
@@ -59,7 +62,7 @@ def transport_operator(geo: Geometry, velocity, dt: float) -> sp.csr_matrix:
 def wave_operator(geo: Geometry, c0: float, dt: float) -> sp.bsr_matrix:
     """A = I + D of the upwind wave system, 4×4 blocks (float64 BSR)."""
     area = geo.area
-    n = geo.S / area[:, :, None]  # (nC, 6, 3)
+    n = geo.S / area[:, :, None]  # (nC, F, 3)
     k = dt * area / geo.volume[:, None]
     A = np.zeros(n.shape[:2] + (4, 4))
     absA = np.zeros_like(A)
@@ -79,7 +82,7 @@ def wave_operator(geo: Geometry, c0: float, dt: float) -> sp.bsr_matrix:
 def implicit_operator(config: dict, boundary: str):
     """(A = I + D, dt) of a configuration: model "transport" or "wave", on
     the `boundary` "wall" or "periodic"."""
-    geo = geometry(config["mesh"], periodic=boundary == "periodic")
+    geo = family(config["mesh"]).geometry(config["mesh"], periodic=boundary == "periodic")
     if config["model"] == "transport":
         dt = transport_dt(geo, config["velocity"], config["cfl"])
         return transport_operator(geo, config["velocity"], dt), dt

@@ -10,6 +10,7 @@ solve converged.
 
 from __future__ import annotations
 
+import functools
 from typing import Callable
 
 import torch
@@ -38,10 +39,34 @@ class Route:
         self._request = self.stepper = None
 
 
+def capture_gmres_finishes(stepper) -> None:
+    """Capture the finish graph of every final inner index 1 … restart of
+    each GMRES solver that the stepper (a model's implicit stepper, which
+    closes over its solver) has already run. A request's last restart cycle
+    ends at an index that the warm-up requests may not have reached, and that
+    index's graph would otherwise be captured, and its memory taken, inside
+    the window. The finishes run on the solver's leftover buffers, which
+    every solve sets afresh."""
+    from circulantpreconditioner_tpu_torch.solvers.gmres import GMRES
+
+    for cell in getattr(stepper, "__closure__", None) or ():
+        try:
+            solver = cell.cell_contents
+        except ValueError:  # an empty cell
+            continue
+        if not isinstance(solver, GMRES) or solver._key is None:
+            continue
+        for j in range(1, solver.m + 1):
+            solver.graphs.run(("finish", j), functools.partial(solver._finish, j))
+
+
 def port_mesh(config: dict, periodic: bool):
     """The port's mesh of the configuration, from its public generators."""
     from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh
-    from circulantpreconditioner_tpu_torch.mesh.unstructured import kershaw_mesh
+    from circulantpreconditioner_tpu_torch.mesh.unstructured import (
+        kershaw_mesh,
+        kershaw_tet_mesh,
+    )
 
     mesh = config["mesh"]
     bounds = tuple(tuple(b) for b in mesh.get("bounds", ((-0.5, 0.5),) * 3))
@@ -52,6 +77,8 @@ def port_mesh(config: dict, periodic: bool):
         raise ValueError("only a cartesian mesh is periodic")
     if mesh["family"] == "kershaw":
         return kershaw_mesh(bounds, n, eps=float(mesh["eps"]))
+    if mesh["family"] == "kershawtet":
+        return kershaw_tet_mesh(bounds, n, eps=float(mesh["eps"]))
     raise ValueError(f"unknown mesh family {mesh['family']!r}")
 
 

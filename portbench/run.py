@@ -4,13 +4,15 @@
 
 Set-up (timed as `setup_s`, from the process's start): the route's model,
 operator, preconditioner and stepper built through the port's public API, the
-cells' centres, and `warm_requests` requests of the warm-up stream, which
-capture every graph the cell's requests replay. The window: requests back to
-back (a closed loop, one user running the driver), each a fresh initial state
-made on the device and the port's time loop over it, until `--seconds` have
-passed; the last request runs to its end. Then the peak memory is read, the
-loaded modules checked, the port's state freed, and the sampled answers
-judged against the plain reference (portbench/reference/).
+cells' centres, `warm_requests` requests of the warm-up stream and the finish
+graphs of the stepper's GMRES that they did not reach, which capture every
+graph the cell's requests replay. The window: requests back to back (a closed
+loop, one user running the driver), each a fresh initial state made on the
+device and the port's time loop over it, until `--seconds` have passed; the
+last request runs to its end. Then the peak memory is read, the loaded modules
+checked, the port's state freed, and the sampled answers judged against the
+plain reference (portbench/reference/); the loaded modules are checked again
+before the result is returned.
 
 With --trace 0 the result line holds the cell's end-to-end metrics, with
 --trace 1 its per-layer metrics, read with torch.profiler over the first
@@ -48,6 +50,15 @@ def forbidden_modules(names=None) -> list[str]:
     circulantpreconditioner_tpu)."""
     top = {n.split(".")[0] for n in (sys.modules if names is None else names)}
     return sorted(top & set(FORBIDDEN))
+
+
+def refuse_forbidden(when: str) -> None:
+    """Exit, printing no result, if a module the benchmark may not load is
+    loaded."""
+    found = forbidden_modules()
+    if found:
+        raise SystemExit(f"modules the benchmark may not load were loaded {when}: "
+                         f"{', '.join(found)}")
 
 
 def eprint(*a) -> None:
@@ -115,21 +126,22 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
 
     from circulantpreconditioner_tpu_torch.utils import graphs
     from portbench.metrics import Context
-    from portbench.reference.checks import compare
-    from portbench.reference.mesh import cell_centres
-    from portbench.reference.operators import implicit_operator
-    from portbench.routes import dtype_of
+    from portbench.reference import checks, family
+    from portbench.routes import capture_gmres_finishes, dtype_of
 
     t0 = time.perf_counter()
+    check = checks.kind(cell.limits["check"], cell.config, cell.mix)
     route = importlib.import_module(f"portbench.routes.{cell.mix['route']}").build(
         cell.config, cell.mix, device)
     t1 = time.perf_counter()
-    make = traffic.StateMaker(cell.config, cell_centres(cell.config["mesh"]), device,
+    mesh = cell.config["mesh"]
+    make = traffic.StateMaker(cell.config, family(mesh).cell_centres(mesh), device,
                               dtype_of(cell.config))
     t2 = time.perf_counter()
     warm = traffic.Requests(cell.mix, cell.config, seed, traffic.WARMUP)
     for _ in range(int(cell.mix["warm_requests"])):
         route(make(*warm.next()))
+    capture_gmres_finishes(route.stepper)
     _sync(device)
     eprint(f"set-up: imports {t0 - t_start:.3f} s, route {t1 - t0:.3f} s, centres "
            f"{t2 - t1:.3f} s, warm-up {time.perf_counter() - t2:.3f} s")
@@ -171,9 +183,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
             untraced_steps += route.steps
     window_s = t_end - t_w0
     peak = torch.cuda.max_memory_allocated(device) if device.type == "cuda" else 0
-    found = forbidden_modules()
-    if found:
-        raise SystemExit(f"modules the benchmark may not load were loaded: {', '.join(found)}")
+    refuse_forbidden("by the close of the window")
     stats = {k: v - stats0[k] for k, v in graphs.STATS.snapshot().items()
              if isinstance(v, (int, float))}
     steps = len(times) * route.steps
@@ -188,9 +198,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     if device.type == "cuda":
         torch.cuda.empty_cache()
     t_ref = time.perf_counter()
-    A, _ = implicit_operator(cell.config, cell.mix["boundary"])
-    readings = compare(cell.limits["check"], A, u0, u1, int(cell.mix["steps_per_request"]),
-                       shape_xyz=cell.config["mesh"]["n"], device=device)
+    readings = check.compare(u0, u1, device)
     eprint(f"reference: {len(readings)} answers judged in {time.perf_counter() - t_ref:.3f} s")
     name, limit = f"{cell.limits['check']}_max", float(cell.limits["limit"])
     value = float(max(readings)) if readings else float("inf")
@@ -235,6 +243,7 @@ def run(cell: spec.Cell, seed: int, seconds: float, trace: bool, device,
     result["checks"] = {name: {"value": value, "limit": limit}}
     eprint(f"readings of {name}: {[float(r) for r in readings]}")
     eprint(f"check {name} {value!r} limit {limit!r}")
+    refuse_forbidden("by the reference or the metrics' readers")
     return result
 
 

@@ -8,7 +8,9 @@ per-layer metric adds files and entries and edits none.
   module `portbench.routes.<route>`;
 - per-layer metric `<name>`: a module `portbench.metrics.<name>` with
   `read(ctx)`;
-- the limits of cell `<cell>`: `portbench/limits/<cell>.json`.
+- the limits of cell `<cell>`: `portbench/limits/<cell>.json`, whose
+  `check` names a built-in kind or a module `portbench.reference.kinds.<kind>`;
+- the reference's geometry of a mesh family: `portbench.reference.family`.
 """
 
 from __future__ import annotations

@@ -29,10 +29,16 @@ def card():
     return torch.device("cuda", 0)
 
 
+def tiny_n(config: str, n) -> list[int]:
+    """The mesh size of configuration `config` in a tiny tree: TINY's, or
+    each axis of `n` cut to at most 6."""
+    return TINY.get(config, [min(int(v), 6) for v in n])
+
+
 def tiny_root(tmp_path: Path, rename=lambda c: c) -> Path:
     """A checkout holding BENCHMARK.json and portbench's data files, every cell
-    added by files only: the real configurations at a tiny mesh, the real
-    traffic mixes with one warm-up request, the real limits."""
+    added by files only: the real configurations at a tiny mesh (`tiny_n`),
+    the real traffic mixes with one warm-up request, the real limits."""
     bench = json.loads((REPO / "BENCHMARK.json").read_text())
     data = tmp_path / "portbench"
     for sub in ("configs", "traffic", "limits"):
@@ -40,7 +46,7 @@ def tiny_root(tmp_path: Path, rename=lambda c: c) -> Path:
     configs = []
     for c in bench["configs"]:
         cfg = json.loads((REPO / c["file"]).read_text())
-        cfg["mesh"]["n"] = TINY[c["name"]]
+        cfg["mesh"]["n"] = tiny_n(c["name"], cfg["mesh"]["n"])
         name = rename(c["name"])
         (data / "configs" / f"{name}.json").write_text(json.dumps(cfg))
         configs.append({**c, "name": name, "file": f"portbench/configs/{name}.json",
@@ -61,3 +67,25 @@ def tiny_root(tmp_path: Path, rename=lambda c: c) -> Path:
     bench.update(configs=configs, workloads=cells)
     (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))
     return tmp_path
+
+
+def add_cell(root: Path, cell: dict, limits: dict, config: dict | None = None,
+             mix: dict | None = None) -> None:
+    """Add the BENCHMARK.json entry `cell` to a tiny tree by files alone: its
+    limits file and, where given, a new configuration (written at `tiny_n`'s
+    size) and its traffic mix."""
+    bench = json.loads((root / "BENCHMARK.json").read_text())
+    data = root / "portbench"
+    if config is not None:
+        name = cell["config"]
+        config = {**config, "mesh": {**config["mesh"],
+                                     "n": tiny_n(name, config["mesh"]["n"])}}
+        (data / "configs" / f"{name}.json").write_text(json.dumps(config))
+        bench["configs"].append({"name": name, "source": "added by files",
+                                 "file": f"portbench/configs/{name}.json",
+                                 "reduced": ["mesh"], "why": "added by files"})
+    if mix is not None:
+        (data / "traffic" / f"{cell['traffic']}.json").write_text(json.dumps(mix))
+    (data / "limits" / f"{cell['name']}.json").write_text(json.dumps(limits))
+    bench["workloads"].append(cell)
+    (root / "BENCHMARK.json").write_text(json.dumps(bench, indent=1))

@@ -4,6 +4,7 @@ reference imports nothing of the port either."""
 
 from __future__ import annotations
 
+import pkgutil
 import subprocess
 import sys
 from pathlib import Path
@@ -29,17 +30,26 @@ def _loaded_after(code: str) -> set[str]:
     return set(out.stdout.split())
 
 
+def every_module(package: str) -> list[str]:
+    """The modules of a package of the benchmark, those added later too."""
+    path = REPO.joinpath(*package.split("."))
+    return [f"{package}.{m.name}" for m in pkgutil.iter_modules([str(path)])]
+
+
 def test_the_harness_and_routes_load_no_jax():
+    modules = every_module("portbench.routes") + every_module("portbench.metrics")
+    assert "portbench.routes.wave_gmres" in modules
     loaded = _loaded_after(
         "import portbench.run, portbench.control, portbench.trace, portbench.roofline\n"
-        "import portbench.routes.transport_gmres, portbench.routes.transport_direct\n"
-        "import portbench.routes.wave_gmres, portbench.metrics.k2_roofline\n"
+        f"import {', '.join(modules)}\n"
         "import circulantpreconditioner_tpu_torch.models")
     assert not loaded & {"jax", "jaxlib", "flax", "circulantpreconditioner_tpu"}
 
 
 def test_the_reference_loads_nothing_of_the_port():
-    loaded = _loaded_after("import portbench.reference.checks, portbench.reference.control, "
-                           "portbench.reference.operators, portbench.reference.mesh")
+    modules = (every_module("portbench.reference") + every_module("portbench.reference.families")
+               + every_module("portbench.reference.kinds"))
+    assert "portbench.reference.families.kershawtet" in modules
+    loaded = _loaded_after(f"import {', '.join(modules)}")
     assert not loaded & {"jax", "jaxlib", "flax", "circulantpreconditioner_tpu",
                          "circulantpreconditioner_tpu_torch"}

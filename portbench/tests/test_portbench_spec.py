@@ -12,7 +12,8 @@ from pathlib import Path
 import pytest
 
 from portbench import spec
-from portbench.tests.conftest import tiny_root
+from portbench.reference import checks
+from portbench.tests.conftest import add_cell, tiny_root
 
 REPO = Path(__file__).resolve().parents[2]
 BENCH = json.loads((REPO / "BENCHMARK.json").read_text())
@@ -59,7 +60,8 @@ def test_every_cell_loads_as_data(cell):
         assert callable(importlib.import_module(f"portbench.metrics.{m['name']}").read)
     names = {m["name"] for m in c.end_to_end}
     assert "setup_s" in names and len(names) >= 2 and c.per_layer
-    assert c.limits["check"] in ("error", "direct_error") and c.limits["samples"] >= 1
+    assert isinstance(checks.kind(c.limits["check"], c.config, c.mix), checks.Kind)
+    assert c.limits["samples"] >= 1
 
 
 def test_each_config_is_used_and_has_its_own_file():
@@ -91,15 +93,11 @@ def test_a_route_with_no_cell_yet_returns_by_data_alone(tmp_path):
     from portbench import run
 
     root = tiny_root(tmp_path)
-    bench = json.loads((root / "BENCHMARK.json").read_text())
     name = "transport100.gmres_circulant"
-    bench["workloads"].append({"name": name, "config": "transport100",
-                               "traffic": "gmres_circulant", "chips": 1, "why": "returns"})
-    (root / "BENCHMARK.json").write_text(json.dumps(bench))
-    (root / "portbench" / "traffic" / "gmres_circulant.json").write_text(
-        (REPO / "portbench" / "traffic" / "gmres_circulant.json").read_text())
-    (root / "portbench" / "limits" / f"{name}.json").write_text(
-        json.dumps({"check": "error", "limit": 1.0, "samples": 2}))
+    add_cell(root, {"name": name, "config": "transport100", "traffic": "gmres_circulant",
+                    "chips": 1, "why": "returns"},
+             {"check": "error", "limit": 1.0, "samples": 2},
+             mix=json.loads((REPO / "portbench" / "traffic" / "gmres_circulant.json").read_text()))
     cell = spec.load_cell(name, root)
     assert [m["name"] for m in cell.end_to_end] == ["step_ms", "peak_mem_gib", "setup_s"]
     result = run.run(cell, 2**33 + 2, 0.3, False, torch.device("cpu"))
