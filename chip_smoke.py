@@ -122,9 +122,9 @@ Phases, one stdout line each (more for the drivers' own logs):
    bench_suite.py times), its wall and, over one more, its device time and
    launches (torch.profiler); one V-cycle apply's launches, CUDA-event and
    graph times. Then the drivers at 16³: wave_implicit --mesh-family kershawtet
-   --pc gridmg (the JAX driver's route: cell-major GMRES over the dense
-   M = 24 stencil, the cycle's cell-major apply) and wave_explicit
-   --mesh-family tetra, 2 steps each.
+   --pc gridmg (field-major GMRES over the block-sparse supercell stencil,
+   the cycle's field-major apply) and wave_explicit --mesh-family tetra, 2
+   steps each.
 19. mesh files: (a) path D from a Gmsh file of Kershaw 64³ with shared
    vertices: the host seconds of read, weld and topology recovery; the
    recovered mesh equal to kershaw_mesh's bit for bit; wave_implicit <file>
@@ -2042,8 +2042,8 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
               sorted(prof.items(), key=lambda kv: -kv[1])[:3]) + f"; {smi}", flush=True)
     del wi, pc, solver, A_fm, Dmv, G, G0, r, res, warm, x_cm, b_cm
 
-    # --- 18: the drivers at 16^3: route J-drv (cell-major GMRES over the dense
-    # M = 24 stencil, the V-cycle's cell-major apply) and the explicit loop
+    # --- 18: the drivers at 16^3: the implicit driver's field-major loop
+    # over the block-sparse supercell stencil, and the explicit loop
     nd = 16
     for label, module, argv in (
             ("wave_implicit --pc gridmg kershawtet", wave_implicit,
@@ -2065,7 +2065,7 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
 
     wd = WaveSystem(kershaw_tet_mesh(((0.0, 1.0),) * 3, (nd,) * 3), cfl=1e3 / 3, **f32)
     x = torch.randn(wd.divergence.shape[0], **f32)
-    forms = {"dense M = 24, cell-major (the implicit driver's)": wd.divergence_op(),
+    forms = {"dense M = 24, cell-major ('varying')": wd.divergence_op("varying"),
              "block-sparse, field-major (the explicit driver's)": wd.divergence_op_fm(flat=True)}
     ms = median_ms({k: functools.partial(f, x) for k, f in forms.items()}, calls=10, repeats=5)
     print(f"[18 times] one D apply at Kershaw-tet {nd}^3: " + "; ".join(

@@ -751,26 +751,25 @@ def bench_wave_ilu(s: Suite, n: int = 32) -> dict:
 
 
 def ladder_top_case(n: int, *, device, dtype=F32, mesh=None):
-    """Kershaw-tet n³ (6 tets per hex) at cfl 1e3/3: field-major GMRES (right,
+    """Kershaw-tet n³ (6 tets per hex) at cfl 1e3/3 through the model's own
+    field-major route (drivers/wave_implicit.py --pc gridmg): GMRES (right,
     rtol atol 1e-5, maxiter 1000) over the block-sparse supercell operator,
-    preconditioned by the grid V-cycle whose fine level reuses it."""
+    preconditioned by the grid V-cycle whose fine level is the model's
+    operator."""
     from circulantpreconditioner_tpu_torch.mesh import kershaw_tet_mesh
     from circulantpreconditioner_tpu_torch.models import WaveSystem
-    from circulantpreconditioner_tpu_torch.models.transport import _identity_plus
-    from circulantpreconditioner_tpu_torch.solvers import make_gmres
     from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
 
     mesh = mesh or kershaw_tet_mesh(B01, (n,) * 3)
     model = WaveSystem(mesh, cfl=1e3 / 3, device=device, dtype=dtype)
-    A_fm = functools.partial(_identity_plus, model.divergence_op_fm(flat=True))
-    pc = GridVCyclePC.from_grid_model(model.divergence, mesh.topology_shape, cells_per_site=6,
-                                      A0_apply=A_fm, A0_apply_fm=A_fm, shift=1.0, dtype=dtype)
-    solver = make_gmres(A_fm, pc.apply_fm, rtol=1e-5, atol=1e-5, maxiter=1000, side="right")
-    U0 = model.pack_fm(model.initial_state()).reshape(-1)
-    res = solver(U0, U0)
-    step = lambda U: (solver(U, U).x,)  # noqa: E731
-    return KrylovCase(step, U0, int(res.iters), bool(res.converged), res.x,
-                      {"model": model, "pc": pc, "solver": solver})
+    pc = GridVCyclePC.from_grid_model(
+        model.divergence, mesh.topology_shape, cells_per_site=model.cells_per_site,
+        A0_apply=model.implicit_matvec(), A0_apply_fm=model.implicit_matvec_fm(), shift=1.0,
+        dtype=dtype)
+    step = model.implicit_stepper_fm(M_fm=pc.apply_fm, rtol=1e-5, atol=1e-5, maxiter=1000,
+                                     side="right")
+    return first_step(step, model.pack_fm(model.initial_state()).reshape(-1), model=model,
+                      pc=pc)
 
 
 def bench_ladder_top(s: Suite, n: int = 50) -> dict:
@@ -812,7 +811,6 @@ def bench_ladder_top(s: Suite, n: int = 50) -> dict:
             model, model.initial_state().cpu().numpy(), reps=1)
         rec.update(vs_baseline=per_base * 1e3 / t["ms"], scipy_baseline_ms_per_step=per_base * 1e3,
                    scipy_baseline_gmres_iters=base_iters)
-    c.extra["solver"].release()
     return gate_record(rec)
 
 

@@ -21,10 +21,13 @@ the left. For none, pbjacobi, gridmg and the projection PCs, where the mesh
 has a gather-free stencil form, the loop runs field-major, and on the GPU its
 matvec (and the grid V-cycle's fine level, and dct2lm's second operator
 apply) is kernel K2. ilu0, bjacobi and aggvcycle run the cell-major loop, as
-in the JAX driver: they have no field-major form. So does every PC on the tet
-meshes (--mesh-family tetra|kershawtet), whose field view groups the 6 cells
-of a site: there GMRES's matvec is the dense supercell stencil (M = 24) and
-gridmg's V-cycle runs cell-major, the JAX driver's route.
+in the JAX driver: they have no field-major form. On the tet meshes
+(--mesh-family tetra|kershawtet) the field view groups the 6 cells of a site,
+(24, nSites): GMRES's matvec is the block-sparse supercell stencil, gridmg's
+V-cycle runs its field-major apply from the site level down, pbjacobi takes
+the site's 6 blocks, and the projection PCs' cell-major coarse solve is
+wrapped by one relayout of that view. The JAX driver runs cell-major over
+the dense supercell stencil (M = 24) there.
 
 `--shard rows` is the impl_mpi workload, one process per device: GMRES over
 row-sharded vectors (its norms and projections all-reduced over the ranks)
@@ -161,15 +164,14 @@ def _preconditioners(args, mesh, model, device, dtype):
             raise ValueError("--pc gridmg needs a mesh whose topology is a grid")
         from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
 
-        # on a supercell mesh implicit_matvec_fm() is None, so the V-cycle
-        # builds its own dense fine operator for apply_fm, as in the JAX
-        # driver; only its cell-major apply runs there
+        # the model's operators as the fine level's (on a supercell mesh the
+        # block-sparse one: no dense (24×24) form is built)
         pc_obj = GridVCyclePC.from_grid_model(
             model.divergence, mesh.topology_shape, cells_per_site=model.cells_per_site,
             A0_apply=model.implicit_matvec(), A0_apply_fm=model.implicit_matvec_fm(),
             shift=1.0, dtype=dtype)
         return None, pc_obj.apply_fm, lambda: pc_obj.apply
-    pj_fm = pcs.pbjacobi_fm(model.divergence, shift=1.0)
+    pj_fm = pcs.pbjacobi_fm(model.divergence, shift=1.0, cells_per_site=model.cells_per_site)
     make_pj = lambda: pcs.pbjacobi(model.divergence, shift=1.0)  # noqa: E731
     if args.pc == "pbjacobi":
         return None, pj_fm, make_pj
@@ -182,7 +184,8 @@ def _preconditioners(args, mesh, model, device, dtype):
     coarse = cls(mesh, model.dt, model.c0, device=device, dtype=dtype)
     if args.pc == "dct2lm":
         A_fm = model.implicit_matvec_fm()
-        M_fm = (pcs.multiplicative(A_fm, pcs.cell_major_adapter(coarse.apply, model.nb), pj_fm)
+        M_fm = (pcs.multiplicative(A_fm, pcs.cell_major_adapter(coarse.apply, model.fm_block),
+                                   pj_fm)
                 if A_fm is not None else None)
         return None, M_fm, lambda: pcs.multiplicative(model.implicit_matvec(), coarse.apply,
                                                       make_pj())

@@ -14,9 +14,11 @@
   or field-major. Field-major keeps the state as (fm_block, nSites)
   (flattened for GMRES) so no matvec pays an (N, m) ↔ (m, N) relayout; on a
   CUDA device the field-major D is kernel K2 (ops/plane_stencil.py) whenever
-  the operator fits its contract. On the tet meshes the cell-major D is the
-  dense supercell stencil (M = 24) and the field-major D the block-sparse
-  one; GMRES there runs cell-major, as in the JAX package;
+  the operator fits its contract. On the tet meshes D is the block-sparse
+  supercell stencil in both layouts, decomposed on the host from D's blocks
+  (the dense M = 24 one stays as operator 'varying'), and GMRES runs
+  field-major on the (24, nSites) view; the JAX package runs it cell-major
+  over the dense stencil there;
 - direct steppers on cartesian grids: the block-circulant solve on periodic
   grids (`block_fft_stepper`) and the DCT/DST solve on wall grids
   (`dct_fft_stepper`, `dct_fft_stepper_fm`).
@@ -125,21 +127,19 @@ class WaveSystem:
     def cells_per_site(self) -> int:
         return int(getattr(self.mesh, "cells_per_site", 1))
 
-    def _varying(self):
-        from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
-
-        return VaryingStencilOperator.from_bsr(
-            self.divergence, self.mesh.topology_shape,  # type: ignore[attr-defined]
-            cells_per_site=self.cells_per_site)
-
     @cached_property
     @host_spanned("port.setup.operator")
     def varying_operator(self):
         """D as a VaryingStencilOperator on the mesh's topology grid (of
         sites: M = (dim+1)·cells_per_site). Built once: at 64³ the host build
         takes seconds, and the cell-major, field-major and preconditioner
-        paths all share it."""
-        return self._varying()
+        paths all share it. On a supercell mesh it is the dense form, which
+        only the operator 'varying' asks for."""
+        from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
+
+        return VaryingStencilOperator.from_bsr(
+            self.divergence, self.mesh.topology_shape,  # type: ignore[attr-defined]
+            cells_per_site=self.cells_per_site)
 
     @cached_property
     @host_spanned("port.setup.operator")
@@ -153,25 +153,33 @@ class WaveSystem:
         return WaveNormalStencilOperator.from_varying(self.varying_operator, self.c0)
 
     @cached_property
+    @host_spanned("port.setup.operator")
     def supercell_operator(self):
         """The block-sparse SupercellStencilOperator of D on a supercell mesh,
-        or None where the varying stencil is not flat. Decomposed from a
-        VaryingStencilOperator that is not kept: its dense form holds 2.0 GB
-        in float32 at Kershaw-tet 50³, this one about an eighth of it."""
+        or None where a periodic wrap couples the grid (no flat layout).
+        Decomposed on the host from D's blocks, so the dense form, 2.0 GB in
+        float32 at Kershaw-tet 50³ against this one's eighth of it, is
+        never made on the device."""
         from circulantpreconditioner_tpu_torch.ops.stencil import SupercellStencilOperator
 
-        return SupercellStencilOperator.from_varying(self._varying(), self.nb,
-                                                     self.cells_per_site)
+        return SupercellStencilOperator.from_bsr(
+            self.divergence, self.mesh.topology_shape,  # type: ignore[attr-defined]
+            self.cells_per_site)
 
     def divergence_op(self, operator: str = "auto"):
         """D as a callable on flat cell-major vectors: 'stencil' (cartesian),
         'varying' (gather-free stencil on topologically structured meshes,
-        in its wave normal form where it decomposes), 'normal' (that normal
-        form or raise), 'matrix' (assembled BSR), or 'auto'."""
+        in its wave normal form where it decomposes; the dense form on a
+        supercell mesh), 'normal' (that normal form or raise), 'matrix'
+        (assembled BSR), or 'auto', which on a supercell mesh is the
+        block-sparse supercell stencil where it has that form."""
         if operator == "auto":
             if self._homogeneous_bc():
                 operator = "stencil"
             elif getattr(self.mesh, "topology_shape", None) is not None:
+                S = self.supercell_operator if self.cells_per_site != 1 else None
+                if S is not None:
+                    return S.matvec
                 operator = "varying"
             elif getattr(self.mesh, "bandwidth_ordered", False):
                 operator = "window"
@@ -346,12 +354,10 @@ class WaveSystem:
 
     def implicit_matvec_fm(self, operator: str = "auto"):
         """I + D on field-major flat vectors, or None when the mesh has no
-        gather-free stencil form. None on supercell meshes too: their field
-        view groups fm_block = cells_per_site·(dim+1) rows, which the
-        per-cell preconditioners (pbjacobi_fm, cell_major_adapter) would
-        mis-index, so GMRES runs cell-major there, as in the JAX package."""
-        if self.cells_per_site != 1:
-            return None
+        gather-free stencil form. On a supercell mesh the field view is
+        (fm_block, nSites), fm_block = cells_per_site·(dim+1): the per-cell
+        preconditioners take it by `cells_per_site` (pbjacobi_fm) and
+        `fm_block` (cell_major_adapter)."""
         D = self.divergence_op_fm(operator, flat=True)
         if D is None:
             return None
@@ -363,7 +369,8 @@ class WaveSystem:
         """Field-major GMRES implicit stepper (flat field-major state), or
         None when no gather-free stencil form exists. M_cm: a cell-major
         preconditioner, wrapped with one relayout pair per apply; M_fm: a
-        field-major one (e.g. pbjacobi_fm); both given: their sum."""
+        field-major one on the (fm_block, nSites) view (e.g. pbjacobi_fm with
+        the mesh's cells_per_site); both given: their sum."""
         from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
 
         A = self.implicit_matvec_fm(operator)
@@ -371,7 +378,7 @@ class WaveSystem:
             return None
         terms = []
         if M_cm is not None:
-            terms.append(pcs.cell_major_adapter(M_cm, self.nb))
+            terms.append(pcs.cell_major_adapter(M_cm, self.fm_block))
         if M_fm is not None:
             terms.append(M_fm)
         M = pcs.additive(*terms) if len(terms) > 1 else (terms[0] if terms else None)

@@ -25,6 +25,7 @@ import torch
 
 from circulantpreconditioner_tpu_torch.ops.assembly import wave_jacobian_blocks
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
+from circulantpreconditioner_tpu_torch.utils.profiling import device_span
 
 
 def _to(a, device, dtype) -> torch.Tensor:
@@ -63,6 +64,51 @@ def _side_tables(dim: int, dt: float, c0: float, spacing):
             v[1:] = e[0]
             mirrors.append(np.eye(nb) - 2.0 * np.outer(v, v))
     return np.stack(Ams), np.stack(mirrors)
+
+
+def _site_couplings(rows, cols, shape_xyz, g: int):
+    """The block COO (rows, cols) of a matrix on a grid of sites, g
+    consecutive block rows a site, sites numbered x fastest: (shape_zyx, each
+    entry's site row, sub-row and sub-column, and its offset key
+    (dz+1)·9 + (dy+1)·3 + (dx+1)). Raises ValueError where the matrix is not
+    a 7-point face-neighbour stencil of sites."""
+    rows = np.asarray(rows, dtype=np.int64)
+    cols = np.asarray(cols, dtype=np.int64)
+    dims_xyz = tuple(int(v) for v in shape_xyz)
+    nx = dims_xyz[0]
+    ny = dims_xyz[1] if len(dims_xyz) > 1 else 1
+    nz = dims_xyz[2] if len(dims_xyz) > 2 else 1
+
+    site_r, sub_r = rows // g, rows % g
+    site_c, sub_c = cols // g, cols % g
+
+    def split(idx):
+        return idx % nx, (idx // nx) % ny, idx // (nx * ny)
+
+    rx, ry, rz = split(site_r)
+    cx, cy, cz = split(site_c)
+
+    def delta(a, b, n):
+        d = (b - a) % n
+        return np.where(d == 0, 0, np.where(d == 1, 1, np.where(d == n - 1, -1, 99)))
+
+    dx, dy, dz = delta(rx, cx, nx), delta(ry, cy, ny), delta(rz, cz, nz)
+    if (np.abs(dx) > 1).any() or (np.abs(dy) > 1).any() or (np.abs(dz) > 1).any():
+        raise ValueError("matrix is not a face-neighbour stencil on this grid")
+    if ((dx != 0).astype(int) + (dy != 0).astype(int) + (dz != 0).astype(int) > 1).any():
+        raise ValueError("matrix couples diagonal neighbours — not a 7-point stencil")
+    return (nz, ny, nx), site_r, sub_r, sub_c, (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1)
+
+
+def _offset_zyx(key) -> tuple[int, int, int]:
+    k = int(key)
+    return (k // 9 - 1, (k // 3) % 3 - 1, k % 3 - 1)
+
+
+def _flat_offset(off, shape_zyx) -> int:
+    """A zyx offset as a shift of the flat (x fastest) site index."""
+    _, ny, nx = shape_zyx
+    return int(off[0] * ny * nx + off[1] * nx + off[2])
 
 
 class WaveStencilOperator:
@@ -255,39 +301,13 @@ class VaryingStencilOperator(_GridStencil):
         BSR's block COO. shape_xyz: the site grid's shape, sites numbered x
         fastest; cells_per_site consecutive block rows form one site."""
         check_real_dtype(dtype)
-        rows = np.asarray(rows, dtype=np.int64)
-        cols = np.asarray(cols, dtype=np.int64)
         blocks = np.asarray(blocks, dtype=np.float64)
         m = blocks.shape[-1]
         g = int(cells_per_site)
-        dims_xyz = tuple(int(v) for v in shape_xyz)
-        nx = dims_xyz[0]
-        ny = dims_xyz[1] if len(dims_xyz) > 1 else 1
-        nz = dims_xyz[2] if len(dims_xyz) > 2 else 1
-
-        site_r, sub_r = rows // g, rows % g
-        site_c, sub_c = cols // g, cols % g
-
-        def split(idx):
-            return idx % nx, (idx // nx) % ny, idx // (nx * ny)
-
-        rx, ry, rz = split(site_r)
-        cx, cy, cz = split(site_c)
-
-        def delta(a, b, n):
-            d = (b - a) % n
-            return np.where(d == 0, 0, np.where(d == 1, 1, np.where(d == n - 1, -1, 99)))
-
-        dx, dy, dz = delta(rx, cx, nx), delta(ry, cy, ny), delta(rz, cz, nz)
-        if (np.abs(dx) > 1).any() or (np.abs(dy) > 1).any() or (np.abs(dz) > 1).any():
-            raise ValueError("matrix is not a face-neighbour stencil on this grid")
-        if ((dx != 0).astype(int) + (dy != 0).astype(int) + (dz != 0).astype(int) > 1).any():
-            raise ValueError("matrix couples diagonal neighbours — not a 7-point stencil")
-
-        shape_zyx = (nz, ny, nx)
+        shape_zyx, site_r, sub_r, sub_c, key = _site_couplings(rows, cols, shape_xyz, g)
+        nz, ny, nx = shape_zyx
         N = nz * ny * nx
         M = g * m
-        key = (dz + 1) * 9 + (dy + 1) * 3 + (dx + 1)
         # each block entry's place in the (M, M, nz, ny, nx) coefficients,
         # summed by one bincount in input order: the JAX package's np.add.at
         # over its (site grid, sub_r, sub_c, m, m) array, without the
@@ -301,14 +321,12 @@ class VaryingStencilOperator(_GridStencil):
             place = (ri[:, :, None] * M + cj[:, None, :]) * N + site_r[sel, None, None]
             C = np.bincount(place.reshape(-1), weights=blocks[sel].reshape(-1),
                             minlength=M * M * N)
-            offsets.append((int(k) // 9 - 1, (int(k) // 3) % 3 - 1, int(k) % 3 - 1))
+            offsets.append(_offset_zyx(k))
             coefs_np.append(C.reshape((M, M) + shape_zyx))
 
         if cls._flat_safe(offsets, coefs_np, shape_zyx):
             # wrap-crossing layers all zero: flat rolls are exact
-            strides = (ny * nx, nx, 1)
-            flat_offsets = tuple(int(sum(o * s for o, s in zip(off, strides)))
-                                 for off in offsets)
+            flat_offsets = tuple(_flat_offset(off, shape_zyx) for off in offsets)
             coefs = [C.reshape(M, M, N) for C in coefs_np]
             return cls.from_arrays(shape_zyx, M, flat_offsets, coefs, "flat",
                                    device=device, dtype=dtype)
@@ -393,8 +411,9 @@ class SupercellStencilOperator:
     sub-blocks of the diagonal offset), and a hex face split into two
     triangles couples two tet pairs with the neighbouring hex. This class
     keeps, per offset, the non-zero (sub_row, sub_col) m×m sub-blocks,
-    detected from the assembled coefficients (`from_varying`), so any
-    supercell pattern works. Its coefficients are the dense form's own.
+    detected from the assembled coefficients (`from_blocks` on the host from
+    the block COO, `from_varying` from the dense form), so any supercell
+    pattern works. Its coefficients are the dense form's own.
 
     The apply is batched per offset: for each sub-row that has sub-blocks,
     its K sub-columns (fewer padded with zero blocks) are gathered from the
@@ -418,43 +437,99 @@ class SupercellStencilOperator:
         return self.m * self.g
 
     @classmethod
-    def from_varying(cls, V: VaryingStencilOperator, m: int, g: int, tol: float = 0.0):
-        """Decompose a flat-layout supercell VaryingStencilOperator (V.m ==
-        m·g) into its non-zero m×m sub-blocks; None if V is not in that form."""
-        if V.layout != "flat" or V.m != m * g:
-            return None
+    def _packed(cls, shape_zyx, m: int, g: int, device, terms, tol: float = 0.0):
+        """The operator from `terms`: per offset (flat int, in order), the
+        dict (sub_row, sub_col) → its m×m coefficients over the sites, a host
+        tensor (m, m, N) in the working dtype. Sub-blocks whose coefficients
+        are all within `tol` of zero are dropped, and so are offsets left
+        with none."""
         offsets, pair_idx, rows, cols, coefs = [], [], [], [], []
-        device, dtype = V.coefs[0].device, V.coefs[0].dtype
-        for off, Ct in zip(V.offsets, V.coefs):
-            Cn = Ct.cpu().numpy()  # (M, M, N)
-            pairs = [(sr, sc) for sr in range(g) for sc in range(g)
-                     if np.abs(Cn[sr * m:(sr + 1) * m, sc * m:(sc + 1) * m]).max() > tol]
+        for off, blocks in terms:
+            pairs = sorted(p for p, C in blocks.items() if C.abs().max() > tol)
             if not pairs:
                 continue
             sub_rows = sorted({sr for sr, _ in pairs})
             K = max(sum(1 for sr, _ in pairs if sr == r) for r in sub_rows)
             col = np.zeros((len(sub_rows), K), dtype=np.int64)
-            C = np.zeros((len(sub_rows), K, m, m, Cn.shape[-1]), dtype=Cn.dtype)
+            C = torch.zeros((len(sub_rows), K) + blocks[pairs[0]].shape,
+                            dtype=blocks[pairs[0]].dtype)
             for a, r in enumerate(sub_rows):
                 for k, sc in enumerate(sc for sr, sc in pairs if sr == r):
                     col[a, k] = sc
-                    C[a, k] = Cn[r * m:(r + 1) * m, sc * m:(sc + 1) * m]
+                    C[a, k] = blocks[(r, sc)]
             offsets.append(int(off))
             pair_idx.append(tuple(pairs))
             rows.append(torch.as_tensor(sub_rows, dtype=torch.int64, device=device))
             cols.append(torch.as_tensor(col, device=device))
-            coefs.append(torch.from_numpy(C).to(device=device, dtype=dtype))
-        return cls(V.shape_zyx, m, g, offsets, pair_idx, rows, cols, coefs)
+            coefs.append(C.to(device=device))
+        return cls(shape_zyx, m, g, offsets, pair_idx, rows, cols, coefs)
+
+    @classmethod
+    def from_varying(cls, V: VaryingStencilOperator, m: int, g: int, tol: float = 0.0):
+        """Decompose a flat-layout supercell VaryingStencilOperator (V.m ==
+        m·g) into its non-zero m×m sub-blocks; None if V is not in that form."""
+        if V.layout != "flat" or V.m != m * g:
+            return None
+        terms = []
+        for off, Ct in zip(V.offsets, V.coefs):
+            Cn = Ct.cpu()  # (M, M, N)
+            terms.append((off, {(sr, sc): Cn[sr * m:(sr + 1) * m, sc * m:(sc + 1) * m]
+                                for sr in range(g) for sc in range(g)}))
+        return cls._packed(V.shape_zyx, m, g, V.coefs[0].device, terms, tol)
+
+    @classmethod
+    def from_blocks(cls, rows, cols, blocks, shape_xyz, g: int, *, device: torch.device,
+                    dtype: torch.dtype):
+        """From a block COO (rows, cols (nnzb,), blocks (nnzb, m, m)), g
+        consecutive block rows a site, on the host: only the sub-blocks that
+        the COO touches are assembled, and only the non-zero ones go to the
+        device, so the dense (g·m)² form is made nowhere. None where a
+        wrap-crossing boundary layer is coupled (a periodic grid: no flat
+        layout). The same sub-blocks, coefficients and order as
+        `from_varying` on the dense VaryingStencilOperator.from_blocks."""
+        check_real_dtype(dtype)
+        blocks = np.asarray(blocks, dtype=np.float64)
+        m = blocks.shape[-1]
+        shape_zyx, site_r, sub_r, sub_c, key = _site_couplings(rows, cols, shape_xyz, g)
+        N = int(np.prod(shape_zyx))
+        e = np.arange(m * m)
+        terms = []
+        for k in np.unique(key):
+            sel = key == k
+            pair = sub_r[sel] * g + sub_c[sel]
+            present = np.unique(pair)
+            # each entry's place in the (pairs, m, m, N) coefficients, summed
+            # in input order, as the dense form sums them
+            place = (np.searchsorted(present, pair)[:, None] * (m * m) + e) * N + site_r[sel, None]
+            C = np.bincount(place.reshape(-1), weights=blocks[sel].reshape(-1),
+                            minlength=len(present) * m * m * N).reshape((-1, m, m) + shape_zyx)
+            off = _offset_zyx(k)
+            if not VaryingStencilOperator._flat_safe([off], [C.reshape((-1, m) + shape_zyx)],
+                                                     shape_zyx):
+                return None
+            Ct = torch.from_numpy(C.reshape(-1, m, m, N)).to(dtype)
+            terms.append((_flat_offset(off, shape_zyx),
+                          {(int(p) // g, int(p) % g): Ct[i] for i, p in enumerate(present)}))
+        return cls._packed(shape_zyx, m, g, device, terms)
+
+    @classmethod
+    def from_bsr(cls, A, shape_xyz, g: int, dtype: torch.dtype | None = None):
+        """From a BSRMatrix's block COO (`from_blocks`), on its device."""
+        rows, cols, blocks = A.coo_numpy()
+        return cls.from_blocks(rows, cols, blocks, shape_xyz, g, device=A.blocks.device,
+                               dtype=dtype or A.blocks.dtype)
 
     def _apply_gt(self, gt: torch.Tensor) -> torch.Tensor:
-        """gt (M, N_sites) field-major → the same shape."""
+        """gt (M, N_sites) field-major → the same shape; the device span
+        "port.supercell"."""
         g, m = self.g, self.m
-        y = torch.zeros((g, m) + gt.shape[1:], dtype=gt.dtype, device=gt.device)
-        for off, rows, cols, C in zip(self.offsets, self.rows, self.cols, self.coefs):
-            nbr = (torch.roll(gt, -off, dims=1) if off else gt).reshape((g, m) + gt.shape[1:])
-            x = nbr[cols]  # (R, K, m, N): each sub-row's sub-columns
-            y.index_add_(0, rows, (C * x.unsqueeze(2)).sum(dim=(1, 3)))
-        return y.reshape(gt.shape)
+        with device_span("port.supercell", gt.device):
+            y = torch.zeros((g, m) + gt.shape[1:], dtype=gt.dtype, device=gt.device)
+            for off, rows, cols, C in zip(self.offsets, self.rows, self.cols, self.coefs):
+                nbr = (torch.roll(gt, -off, dims=1) if off else gt).reshape((g, m) + gt.shape[1:])
+                x = nbr[cols]  # (R, K, m, N): each sub-row's sub-columns
+                y.index_add_(0, rows, (C * x.unsqueeze(2)).sum(dim=(1, 3)))
+            return y.reshape(gt.shape)
 
     def matvec_fm(self, g: torch.Tensor) -> torch.Tensor:
         """Field-major apply: g (M, N_sites) → the same shape."""

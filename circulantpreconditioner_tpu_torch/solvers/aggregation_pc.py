@@ -32,7 +32,9 @@ versions. A level whose coarser levels lack a field-major operator (a
 periodic grid_last level below it) keeps the V-cycle's generic stages, as do
 the fine level and the algebraic hierarchy's levels; `utils.graphs.STATS`
 counts the visits of levels below the fine one that K5 ran
-(`vcycle_levels_fused`) and that it did not (`_plain`).
+(`vcycle_levels_fused`) and that it did not (`_plain`). The levels below the
+fine one are the device span "port.pc.coarse"; a supercell level's own work
+(smoothing, residuals, transfers) the device span "port.pc.site".
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ class _Level:
     factor: int            # aggregation factor to the next level
     n_agg: int             # block rows at the next level
     A_fm: Callable | None = None  # field-major flat operator apply (grid PCs only)
+    span: str | None = None  # the device span of the level's own work (a supercell level's)
 
 
 def _smooth(L: _Level, omega: float, r: torch.Tensor) -> torch.Tensor:
@@ -273,17 +276,26 @@ def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
         smooth, restrict, prolong = ((_smooth_fm, _restrict_fm, _prolong_fm) if fm
                                      else (_smooth, _restrict, _prolong))
     A = L.A_fm if fm else L.A
-    z = smooth(L, omega, r)
-    for _ in range(n_smooth[0] - 1):
-        z = z + smooth(L, omega, r - A(z))
-    rc = restrict(L, r - A(z))
+    with _level_span(L, r.device):
+        z = smooth(L, omega, r)
+        for _ in range(n_smooth[0] - 1):
+            z = z + smooth(L, omega, r - A(z))
+        rc = restrict(L, r - A(z))
     # from level 0, every coarser level and the bottom solve: "port.pc.coarse"
     with (device_span("port.pc.coarse", r.device) if l == 0 else contextlib.nullcontext()):
         zc = _vcycle(levels, bot_inv, n_smooth, omega, l + 1, rc, fm=fm, bot_b=bot_b)
-    z = z + prolong(L, zc)
-    for _ in range(n_smooth[1]):
-        z = z + smooth(L, omega, r - A(z))
+    with _level_span(L, r.device):
+        z = z + prolong(L, zc)
+        for _ in range(n_smooth[1]):
+            z = z + smooth(L, omega, r - A(z))
     return z
+
+
+def _level_span(L, device: torch.device):
+    """The level's device span (`_Level.span`) around its work before and
+    after the coarser levels, which it leaves out."""
+    span = getattr(L, "span", None)
+    return device_span(span, device) if span else contextlib.nullcontext()
 
 
 def _shifted_apply(Dmv, shift, x):
@@ -398,7 +410,8 @@ class GridVCyclePC(AggregationVCyclePC):
             levels.append(_Level(A=A0_apply, Dinv=_block_diag_inv(A_l, b, device, dtype),
                                  cnt_inv=torch.full((n_sites,), 1.0 / cps, device=device,
                                                     dtype=dtype),
-                                 n=n0, b=b, factor=cps, n_agg=n_sites, A_fm=A0_apply_fm))
+                                 n=n0, b=b, factor=cps, n_agg=n_sites, A_fm=A0_apply_fm,
+                                 span="port.pc.site"))
             A_l = _galerkin_chunk(A_l, b, n0, cps, n_sites)
         shape = tuple(int(v) for v in shape_xyz)
         first = cps == 1

@@ -62,11 +62,27 @@ def _block_diag_apply_fm(DinvT: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ijn,jn->in", DinvT, r.reshape(DinvT.shape[0], -1)).reshape(-1)
 
 
-def pbjacobi_fm(A: BSRMatrix, shift: float = 0.0):
-    """pbjacobi for field-major flat vectors (x.reshape(b, n) is the field
-    view); the inverted blocks are stored (b, b, n)."""
-    DinvT = np.ascontiguousarray(_inverted_diagonal_blocks(A, shift).transpose(1, 2, 0))
-    return functools.partial(_block_diag_apply_fm, torch.as_tensor(DinvT).to(
+def _site_block_diag_apply_fm(DinvT: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    g, b = DinvT.shape[0], DinvT.shape[1]
+    return torch.einsum("kijn,kjn->kin", DinvT, r.reshape(g, b, -1)).reshape(-1)
+
+
+def pbjacobi_fm(A: BSRMatrix, shift: float = 0.0, cells_per_site: int = 1):
+    """pbjacobi for field-major flat vectors. With one cell a site
+    x.reshape(b, n) is the field view and the inverted blocks are stored
+    (b, b, n). On a supercell mesh (cells_per_site = g > 1, cell g·s + k the
+    k-th cell of site s) the view is x.reshape(g·b, n_sites), cell g·s + k
+    owning rows k·b … k·b + b−1 of column s, and the blocks are stored
+    (g, b, b, n_sites)."""
+    Dinv = _inverted_diagonal_blocks(A, shift)  # (n, b, b)
+    g = int(cells_per_site)
+    if g == 1:
+        DinvT, apply = Dinv.transpose(1, 2, 0), _block_diag_apply_fm
+    else:
+        n, b = Dinv.shape[0], Dinv.shape[1]
+        DinvT = Dinv.reshape(n // g, g, b, b).transpose(1, 2, 3, 0)
+        apply = _site_block_diag_apply_fm
+    return functools.partial(apply, torch.as_tensor(np.ascontiguousarray(DinvT)).to(
         device=A.blocks.device, dtype=A.blocks.dtype))
 
 
@@ -76,8 +92,10 @@ def _cell_major_adapter_apply(apply_cm, m: int, r: torch.Tensor) -> torch.Tensor
 
 
 def cell_major_adapter(apply_cm: Callable, m: int):
-    """Wrap a cell-major preconditioner for field-major flat vectors: one
-    (N,m)↔(m,N) relayout pair per apply."""
+    """Wrap a cell-major preconditioner for field-major flat vectors whose
+    field view is (m, N): one (N,m)↔(m,N) relayout pair per apply. m is the
+    model's fm_block (dim+1, or cells_per_site·(dim+1) on a supercell mesh,
+    whose cell-major order is site-major)."""
     return functools.partial(_cell_major_adapter_apply, apply_cm, int(m))
 
 

@@ -149,7 +149,8 @@ def _tet_models(n, cfl=1e3 / 3):
 def _tet_grid_pcs(mj, mt, route, **kw):
     """The two ways the JAX package builds the supercell V-cycle. "drv": its
     wave_implicit driver (the model's cell-major dense supercell matvec, no
-    field-major one, so from_grid_model builds its own dense op0); "bench":
+    field-major one, so from_grid_model builds its own dense op0; the port's
+    model gives the block-sparse one in both layouts); "bench":
     bench_suite.py's Kershaw-tet rung (the block-sparse supercell operator,
     field-major, as both fine-level applies)."""
     if route == "drv":

@@ -433,7 +433,9 @@ def test_pc_table_case(pc_table_8, name):
 
 def test_ladder_top_case():
     """Kershaw-tet 4³: field-major GMRES over the supercell operator with the
-    grid V-cycle whose fine level reuses it (the JAX suite's bench_ladder_top)."""
+    grid V-cycle whose fine level reuses it, built by the port's model and
+    stepper as its driver builds them (by hand in the JAX suite's
+    bench_ladder_top)."""
     n = 4
     c = ts.ladder_top_case(n, **F64)
     mesh = j_ktet(B01, (n,) * 3)

@@ -103,6 +103,25 @@ def test_block_sparse_supercell_matches_jax(kind):
     _close(St.matvec(torch.as_tensor(x)), Vt.matvec(torch.as_tensor(x)))
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_host_decomposition_is_the_dense_ones(dtype):
+    """SupercellStencilOperator.from_bsr, the wave model's, decomposes D's
+    blocks on the host without the dense form: the same offsets, sub-blocks,
+    tables and coefficients, bit for bit, as from_varying on the dense
+    VaryingStencilOperator; and on a periodic tet mesh (grid_last) neither
+    has a block-sparse form."""
+    mesh = tu.kershaw_tet_mesh(UNIT, (4, 3, 5))
+    wt = tm.WaveSystem(mesh, cfl=10.0, device=CPU, dtype=dtype)
+    St = ts.SupercellStencilOperator.from_bsr(wt.divergence, mesh.topology_shape, 6)
+    Sv = ts.SupercellStencilOperator.from_varying(wt.varying_operator, 4, 6)
+    assert (St.offsets, St.pair_idx, St.M) == (Sv.offsets, Sv.pair_idx, Sv.M)
+    for a, b in zip(St.rows + St.cols + St.coefs, Sv.rows + Sv.cols + Sv.coefs):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert wt.supercell_operator.pair_idx == St.pair_idx
+    _, wp, _ = _models("wave", n=(3, 2, 3), family="tet_mesh", periodic=True)
+    assert ts.SupercellStencilOperator.from_bsr(wp.divergence, wp.mesh.topology_shape, 6) is None
+
+
 def test_supercell_sub_block_pattern():
     """The 6-tet split of a hex: 18 of the 36 diagonal sub-blocks (each tet,
     its two face neighbours in the ring about the 0-6 diagonal), and 2 per
@@ -162,18 +181,20 @@ def test_scalar_models_take_the_dense_supercell_stencil(kind):
 
 
 def test_wave_model_supercell_routes():
-    """WaveSystem on a tet mesh: the cell-major D is the dense supercell
-    stencil, the field-major D the block-sparse one on (24, nSites) fields,
-    and there is no field-major implicit matvec (GMRES runs cell-major), as
-    in the JAX package."""
+    """WaveSystem on a tet mesh: D is the block-sparse supercell stencil in
+    both layouts ('auto'; the dense one stays as 'varying'), and the
+    field-major implicit matvec on (24, nSites) fields is the JAX package's
+    cell-major one after the relayout. The JAX package has no field-major
+    implicit matvec there (its GMRES runs cell-major); the port's stepper
+    runs field-major."""
     wj, wt, _ = _models("wave")
     assert wt.fm_block == wj.fm_block == 24 and wt.cells_per_site == 6
     assert wt.normal_operator is None
     D = wt.divergence_op()
-    assert isinstance(D.__self__, ts.VaryingStencilOperator) and D.__self__.m == 24
+    assert isinstance(D.__self__, ts.SupercellStencilOperator)
+    assert isinstance(wt.divergence_op("varying").__self__, ts.VaryingStencilOperator)
     assert isinstance(wt.divergence_op_fm().__self__, ts.SupercellStencilOperator)
-    assert wt.implicit_matvec_fm() is None and wj.implicit_matvec_fm() is None
-    assert wt.implicit_stepper_fm() is None
+    assert wj.implicit_matvec_fm() is None and wt.implicit_stepper_fm() is not None
     with pytest.raises(ValueError, match="normal-form"):
         wt.divergence_op_fm("normal")
     U = wt.initial_state()
@@ -184,8 +205,8 @@ def test_wave_model_supercell_routes():
     x = np.random.default_rng(5).standard_normal(wt.mesh.n_cells * 4)
     _close(D(torch.as_tensor(x)), wj.divergence_op()(jnp.asarray(x)))
     g = torch.as_tensor(x.reshape(-1, 24).T.copy())
-    _close(wt.divergence_op_fm(flat=True)(g.reshape(-1)),
-           wj.divergence_op_fm(flat=True)(jnp.asarray(g.numpy().reshape(-1))))
+    _close(wt.unpack_fm(wt.implicit_matvec_fm()(g.reshape(-1))),
+           wj.implicit_matvec()(jnp.asarray(x)))
 
 
 def test_explicit_field_major_steps_match_jax():
