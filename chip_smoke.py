@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's main paths, with kernels K1 to K5
+"""GPU smoke run of the PyTorch port's main paths, with kernels K1 to K6
 checked and timed.
 
     python3 chip_smoke.py
@@ -7,7 +7,7 @@ Needs one CUDA GPU (exits 1 without one) and the repository beside this file.
 Phases, one stdout line each (more for the drivers' own logs):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build K1 to K5 (csrc/*.cu) from the sources, one nvcc per source,
+2. build K1 to K6 (csrc/*.cu) from the sources, one nvcc per source,
    timed; ptxas's report of K1 and K3; the count of tensor-core instructions
    (HMMA, HGMMA) in the SASS of each of K3's float32 kernels (cuobjdump),
    which must not be 0;
@@ -245,10 +245,23 @@ Phases, one stdout line each (more for the drivers' own logs):
    by bytes. Phase 9 checks K5's launches on path D (three a level visit,
    two fused visits and none plain a V-cycle apply), phase 18 on path J
    (three a fused visit, none plain).
+27. kernel K6 (csrc/block_jacobi.cu, point-block Jacobi on field-major
+   vectors, float32, b = 4) at the benchmark cells' shapes and layouts:
+   Kershaw 64³'s fine level (Dinv cell-major, the V-cycle's) and its
+   pbjacobi_fm (field-major), Kershaw-tet 50³'s site level (cell-major, 6
+   cells a site) and its pbjacobi_fm ((6, 4, 4, S)); each as the
+   pre-smoothing ω·Dinv·r and the fused post-sweep zn + ω·Dinv·(r − y),
+   against its plain version (the einsum), max|y_K6 − y_plain| ≤ 1e-5 ·
+   max|y_plain| (float64 at 64³: 1e-12); each timed by CUDA-graph replay
+   beside its plain version and its bound by bytes, with its inputs rotated
+   through copies that overflow the 50 MB L2 (as in a step, where K2 and
+   GMRES evict them) and again warm. Phase 9 checks K6's launches on path D
+   (two an apply: the fine level's pre- and post-smoothing, none plain),
+   phase 18 on path J (two an apply at the site level).
 Paths G to J launch none of K1 to K4 (path J's grid V-cycle runs its levels
 below the site level in K5), phase 20's sharded drivers none of K1 to K3
 (circulant2l's slab solve runs K4 at "high"); their launch counts are
-printed and checked. K1 to K5 count their launches per graph replay
+printed and checked. K1 to K6 count their launches per graph replay
 (utils/graphs.py). The iterations a
 solve queued past its stop (utils.graphs.STATS.masked) run masked and
 launch their kernels all the same: the counts hold them, each check adds
@@ -264,7 +277,9 @@ by its cheapest known algorithm, and `algorithm_bound_ms` that of the kernel's
 own algorithm; `masked_launches` is the part of `launches` made by iterations
 queued past a stop; K5's `ms`, `plain_ms` and `bound_ms` are those of the
 coarse part of one 64³ V-cycle apply, its `stages` each stage's at 32³ and
-16³, and it has no library counterpart), and as the last line
+16³, and it has no library counterpart; K6's those of Kershaw 64³'s fused
+post-sweep with its inputs out of L2, its `forms` every shape's and form's,
+and its plain version, the einsum, is the library call), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero without that line.
 """
@@ -543,6 +558,7 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
         plane_stencil_cuda,
     )
     from circulantpreconditioner_tpu_torch.ops.stencil import WaveNormalStencilOperator
+    from circulantpreconditioner_tpu_torch.ops.block_jacobi import BlockJacobiKernel
     from circulantpreconditioner_tpu_torch.ops.vcycle_sweep import VCycleSweepKernel
     from circulantpreconditioner_tpu_torch.solvers import make_gmres
     from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
@@ -648,12 +664,13 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
 
         # --- 9: main path D, the implicit wave driver with the grid V-cycle -
         PlaneStencilMatvec.launches = FusedCirculantSolver.launches = 0
-        VCycleSweepKernel.launches = 0
+        VCycleSweepKernel.launches = BlockJacobiKernel.launches = 0
         t0 = time.perf_counter()
         res_i, snap = solve_run(lambda: wave_implicit.main(common + ["--ntmax", "2", "--pc",
                                                                      "gridmg"]))
         wall_i = time.perf_counter() - t0
         k2_i, k5_i = PlaneStencilMatvec.launches, VCycleSweepKernel.launches
+        k6_i = BlockJacobiKernel.launches
         its = [d["extras"][0] for d in res_i.diagnostics]
         conv = [d["extras"][2] for d in res_i.diagnostics]
         expected = k2_expected_launches(its, pc_fine_applies=2, masked=snap["masked"])
@@ -678,6 +695,13 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
         check(fused == 2 * pc_applies and plain == 0 and k5_i == 3 * fused,
               f"wave_implicit gridmg: {k5_i} K5 launches, level visits fused {fused} and plain "
               f"{plain}, for {pc_applies} V-cycle applies")
+        # K6: the fine level's pre- and post-smoothing of every apply
+        bj_f, bj_p = snap["block_jacobi_fused"], snap["block_jacobi_plain"]
+        print(f"[9 main path D] K6 launches {k6_i} for {pc_applies} V-cycle applies: "
+              f"block-Jacobi applies fused {bj_f}, plain {bj_p} (2 fused an apply)", flush=True)
+        check(bj_f == 2 * pc_applies and bj_p == 0 and k6_i == bj_f,
+              f"wave_implicit gridmg: {k6_i} K6 launches, block-Jacobi applies fused {bj_f} and "
+              f"plain {bj_p}, for {pc_applies} V-cycle applies")
         record_loop("D", snap, its=its, first_ms=res_i.step_seconds[0] * 1e3,
                     capture_s=snap["capture_seconds"])
         check(bool(torch.isfinite(res_i.state).all()), "wave_implicit: non-finite state")
@@ -829,7 +853,8 @@ def wave_phases(dev: torch.device, smi: str) -> dict:
             "max_abs_err": k2_err, "ms": gms["K2"], "plain_ms": gms["K2 plain"],
             "events_ms": ms["K2"], "bound_ms": k2_bound, "bound_by": k2_by,
             "algorithm_bound_ms": k2_bound, "library_ms": lib_graph}, mesh, mi, {
-                "its": its, "k2": k2_i, "k5": k5_i, "state": res_i.state, "state_c": U_e}
+                "its": its, "k2": k2_i, "k5": k5_i, "k6": k6_i, "state": res_i.state,
+                "state_c": U_e}
 
 
 def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
@@ -1224,10 +1249,10 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
 
 
 def kernel_launches() -> dict[str, int]:
-    """The launch counters of K1, K2, K3, K4 and K5."""
+    """The launch counters of K1 to K6."""
     from circulantpreconditioner_tpu_torch.utils import graphs
 
-    return dict(zip(("K1", "K2", "K3", "K4", "K5"), graphs.kernel_launches()))
+    return dict(zip(("K1", "K2", "K3", "K4", "K5", "K6"), graphs.kernel_launches()))
 
 
 def reset_kernel_launches() -> None:
@@ -1981,7 +2006,7 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     Dmv = wi.divergence.matvec
     G0 = G = wi.pack_fm(wi.initial_state()).reshape(-1)
     its, conv, walls, true_res, snaps = [], [], [], [], []
-    k5_0 = kernel_launches()["K5"]
+    k5_0, k6_0 = kernel_launches()["K5"], kernel_launches()["K6"]
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2001,6 +2026,15 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
           f"site level fused {fused}, plain {plain} (3 launches a fused visit)", flush=True)
     check(fused > 0 and plain == 0 and k5_j == 3 * fused,
           f"path J: {k5_j} K5 launches, level visits fused {fused} and plain {plain}")
+    k6_j = kernel_launches()["K6"] - k6_0
+    bj_f = sum(sn["block_jacobi_fused"] for sn in snaps)
+    bj_p = sum(sn["block_jacobi_plain"] for sn in snaps)
+    below = len(pc.levels) - 1  # the levels below the site level, each a K5 visit an apply
+    print(f"[18 main path J] K6 launches in the two solves {k6_j}: the site level's "
+          f"block-Jacobi applies fused {bj_f}, plain {bj_p} (2 an apply, {fused // below} "
+          f"applies)", flush=True)
+    check(bj_f * below == 2 * fused and bj_p == 0 and k6_j == bj_f,
+          f"path J: {k6_j} K6 launches, block-Jacobi applies fused {bj_f} and plain {bj_p}")
     # the first step again, warm: bench_suite.py times this solve from U0 on the TPU
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2073,7 +2107,7 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
         f"graph replay" for k, f in forms.items()) + f"; {smi}", flush=True)
 
     launched = kernel_launches()
-    print(f"[18] K1 to K5 launches on path J: {launched} (K1 to K4 0 expected: no TPU kernel "
+    print(f"[18] K1 to K6 launches on path J: {launched} (K1 to K4 0 expected: no TPU kernel "
           f"lies on it); phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     check(not any(launched[k] for k in ("K1", "K2", "K3", "K4")),
           f"path J launched a TPU kernel's port: {launched}")
@@ -2370,7 +2404,7 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state,
     t_phase = time.perf_counter()
     rng = np.random.default_rng(20)
     f32 = dict(device=dev, dtype=torch.float32)
-    launched = dict.fromkeys(("K1", "K2", "K3", "K4", "K5"), 0)
+    launched = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
 
     def sharded_run(main, argv):
         """The driver captured (its steps, or its GMRES, as graph replays
@@ -2889,6 +2923,112 @@ def k5_phase(dev: torch.device, smi: str, mi) -> dict:
             "bound_by": b_by, "library_ms": None, "stages": stages}
 
 
+# phase 27: kernel K6 at the benchmark cells' shapes
+TOL_K6 = {torch.float32: 1e-5, torch.float64: 1e-12}  # max|y_K6 − y_plain| / max|y_plain|
+L2_BYTES = 50e6  # the H100's L2
+
+
+def k6_phase(dev: torch.device, smi: str) -> dict:
+    """Phase 27: K6 against its plain versions (the einsums it replaced) at
+    the shapes and Dinv layouts of the benchmark's wave cells, b = 4: the
+    pre-smoothing ω·Dinv·r and the fused post-sweep zn + ω·Dinv·(r − y), each
+    timed by CUDA-graph replay beside its plain version and its bound by
+    bytes. "cold": the calls rotate through copies of the inputs that
+    overflow the L2, as in a step, where K2, GMRES's basis and the other
+    levels evict them between two smoothings; "warm": the same inputs every
+    call. Returns K6's entry of the kernels line, less its launches."""
+    from circulantpreconditioner_tpu_torch.ops import block_jacobi as bj
+    from circulantpreconditioner_tpu_torch.solvers import aggregation_pc as ap
+    from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
+
+    t_phase = time.perf_counter()
+    b, omega = 4, 0.8
+    rng = np.random.default_rng(27)
+    # (label, sites, cells a site, layout): each cell's Dinv as its call site keeps it
+    shapes = [(f"Kershaw {NW}^3 fine level", NW**3, 1, "cell"),
+              (f"Kershaw {NW}^3 pbjacobi_fm", NW**3, 1, "field"),
+              (f"Kershaw-tet {NJ}^3 site level", NJ**3, 6, "cell"),
+              (f"Kershaw-tet {NJ}^3 pbjacobi_fm", NJ**3, 6, "field")]
+
+    def operands(S, g, layout, dtype):
+        """(Dinv in `layout`, its plain ω·Dinv·v, ω) on random blocks near I."""
+        D = torch.as_tensor(np.eye(b)[None] + 0.3 * rng.standard_normal((g * S, b, b)),
+                            device=dev, dtype=dtype)
+        if layout == "field":
+            pj = pcs.PointBlockJacobiFM(
+                (D.permute(1, 2, 0) if g == 1 else D.reshape(S, g, b, b).permute(1, 2, 3, 0))
+                .contiguous(), g)
+            return pj.DinvT, pj._plain, 1.0
+        if g == 1:
+            L = ap._GridLevel(A=None, Dinv=D, cnt_inv=None, shape_xyz=(S, 1, 1),
+                              cshape_xyz=(-(-S // 2), 1, 1), b=b)
+            return D, lambda v: ap._grid_smooth_fm(L, omega, v), omega
+        L = ap._Level(A=None, Dinv=D, cnt_inv=None, n=g * S, b=b, factor=g, n_agg=S)
+        return D, lambda v: ap._smooth_fm(L, omega, v), omega
+
+    def vec(n, dtype):
+        return torch.as_tensor(rng.standard_normal(n), device=dev, dtype=dtype)
+
+    forms, errs, worst, worst_abs = {}, [], 0.0, 0.0
+    for label, S, g, layout in shapes:
+        n = g * b * S
+        for dtype in ((torch.float32, torch.float64) if g == 1 and layout == "cell"
+                      else (torch.float32,)):
+            Dinv, plain, w = operands(S, g, layout, dtype)
+            r, zn, y = vec(n, dtype), vec(n, dtype), vec(n, dtype)
+            for form, args, want in (("pre", (r, None, None), lambda: plain(r)),
+                                     ("post", (r, zn, y), lambda: zn + plain(r - y))):
+                got, ref = bj.apply_cuda(Dinv, layout, g, w, *args), want()
+                d = (got - ref).abs().max().item()
+                d_rel = d / ref.abs().max().item()
+                errs.append(f"{label} {form} {str(dtype)[6:]} {d_rel:.2e}")
+                check(d_rel <= TOL_K6[dtype], f"K6 at {label} ({form}, {dtype}) is off its "
+                      f"plain version: {d_rel:.3e}")
+                if dtype == torch.float32:
+                    worst, worst_abs = max(worst, d_rel), max(worst_abs, d)
+            del Dinv, plain, r, zn, y
+        # times in float32, each call on the next of `copies` input sets
+        for form, n_vec in (("pre", 2), ("post", 4)):
+            nbytes = 4.0 * (b * b + n_vec * b) * g * S
+            copies = max(2, int(np.ceil(2 * L2_BYTES / nbytes)))
+            sets = [operands(S, g, layout, torch.float32)
+                    + tuple(vec(n, torch.float32) for _ in range(3)) for _ in range(copies)]
+            if form == "pre":
+                k6 = lambda D, p, w, r, zn, y: bj.apply_cuda(D, layout, g, w, r)  # noqa: E731
+                pl = lambda D, p, w, r, zn, y: p(r)  # noqa: E731
+            else:
+                k6 = lambda D, p, w, r, zn, y: bj.apply_cuda(D, layout, g, w, r, zn, y)  # noqa: E731
+                pl = lambda D, p, w, r, zn, y: zn + p(r - y)  # noqa: E731
+
+            def rotated(fn, sets=sets, turn=[0]):
+                def call():
+                    turn[0] += 1
+                    return fn(*sets[turn[0] % len(sets)])
+                return call
+
+            b_ms, b_by = bound(2.0 * b * b * g * S, nbytes)
+            ms = graph_ms(rotated(k6))
+            forms[f"{label} {form}"] = {
+                "ms": ms, "warm_ms": graph_ms(lambda: k6(*sets[0])),
+                "plain_ms": graph_ms(rotated(pl)), "bound_ms": b_ms, "bound_by": b_by,
+                "mbytes": nbytes / 1e6, "over_bound": ms / b_ms, "copies": copies}
+            del sets
+    print(f"[27 K6] against its plain versions, max|y_K6 - y_plain|/max|y_plain| (tol "
+          f"{TOL_K6[torch.float32]:g} float32, {TOL_K6[torch.float64]:g} float64): "
+          + "; ".join(errs), flush=True)
+    print("[27 K6 times] CUDA-graph replay of 20 calls, ms per call, inputs rotated past the L2 "
+          "(warm: the same inputs): " + "; ".join(
+              f"{k} {v['ms']:.5f} ({v['over_bound']:.2f}x bound {v['bound_ms']:.5f}, "
+              f"{v['mbytes']:.2f} MB; warm {v['warm_ms']:.5f}; plain {v['plain_ms']:.5f})"
+              for k, v in forms.items())
+          + f"; phase 27 took {time.perf_counter() - t_phase:.1f} s; {smi}", flush=True)
+    main_form = forms[f"Kershaw {NW}^3 fine level post"]
+    return {"max_abs_err": worst_abs, "max_rel_err": worst, "ms": main_form["ms"],
+            "plain_ms": main_form["plain_ms"], "bound_ms": main_form["bound_ms"],
+            "bound_by": main_form["bound_by"], "library_ms": main_form["plain_ms"],
+            "forms": forms}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -2926,7 +3066,7 @@ def main() -> int:
 
     lib_path, build_s = build.build(force=True)
     build.load_library()
-    print(f"[2 build] K1 to K5 built from csrc/ in {build_s:.2f} s", flush=True)
+    print(f"[2 build] K1 to K6 built from csrc/ in {build_s:.2f} s", flush=True)
     ptxas = lib_path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(ptxas):  # K1's and K3's register and shared-memory report
         if "Compiling entry function" in line and ("k3_cmm" in line or "k1_" in line):
@@ -3191,6 +3331,8 @@ def main() -> int:
     lap("25")
     k5 = k5_phase(dev, smi, mi)
     lap("26")
+    k6 = k6_phase(dev, smi)
+    lap("27")
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
     d_path = "20 the sharded drivers (parallel/)"
     b_path = "23 bench.py flagship and bench_suite.py rows at 16^3"
@@ -3250,6 +3392,17 @@ def main() -> int:
         **k5, "launches_by_path": {f"D wave_implicit gridmg {NW}^3": path_d["k5"],
                                    j_path: j_launches["K5"], d_path: d_launches["K5"],
                                    b_path: b_launches["K5"], v_path: v_launches["K5"]},
+    }, {
+        "name": "block_jacobi (K6)",
+        "route": "cuda",
+        "source": "circulantpreconditioner_tpu_torch/csrc/block_jacobi.cu",
+        "replaces": "none: XLA runs the JAX package's block-Jacobi einsums "
+                    "(circulantpreconditioner_tpu/solvers/aggregation_pc.py _grid_smooth_fm, "
+                    "_smooth_fm; solvers/preconditioners.py pbjacobi_fm)",
+        "launches": path_d["k6"],
+        **k6, "launches_by_path": {f"D wave_implicit gridmg {NW}^3": path_d["k6"],
+                                   j_path: j_launches["K6"], d_path: d_launches["K6"],
+                                   b_path: b_launches["K6"], v_path: v_launches["K6"]},
     }]}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(f"card: {smi}")

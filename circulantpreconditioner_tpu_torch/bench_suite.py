@@ -56,7 +56,7 @@ device time beside). The rows whose solvers take a precision tier run the
 JAX rows' "high" (bf16×3 through K4 on the card: transport_implicit's dense
 PC, the DCT solves of dct2l, dct2lm and wave_dct_direct, the distributed
 circulant2l's slab solve) and say so in `precision`; `launches_per_step`
-counts K1 to K5. The SpMV rows and the explicit step carry
+counts K1 to K6. The SpMV rows and the explicit step carry
 `bound_ms`: the bytes of D's coefficients, its input and its output over the
 memory rate (the operations of 2 per stored entry are far below it).
 

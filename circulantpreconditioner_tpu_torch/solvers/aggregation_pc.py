@@ -32,8 +32,11 @@ versions. A level whose coarser levels lack a field-major operator (a
 periodic grid_last level below it) keeps the V-cycle's generic stages, as do
 the fine level and the algebraic hierarchy's levels; `utils.graphs.STATS`
 counts the visits of levels below the fine one that K5 ran
-(`vcycle_levels_fused`) and that it did not (`_plain`). The levels below the
-fine one are the device span "port.pc.coarse"; a supercell level's own work
+(`vcycle_levels_fused`) and that it did not (`_plain`). On field-major
+vectors each smoothing step of the generic stages, z + ω·Dinv·(r − A z)
+after A z, is one launch of kernel K6 on the card (ops/block_jacobi.py: the
+hex fine level, a tet mesh's site level), its einsum on the CPU. The levels
+below the fine one are the device span "port.pc.coarse"; a supercell level's own work
 (smoothing, residuals, transfers) the device span "port.pc.site".
 """
 
@@ -47,7 +50,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from circulantpreconditioner_tpu_torch.ops import vcycle_sweep
+from circulantpreconditioner_tpu_torch.ops import block_jacobi, vcycle_sweep
 from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix
 from circulantpreconditioner_tpu_torch.ops.window_spmv import WindowedBlockOperator
 from circulantpreconditioner_tpu_torch.utils.graphs import STATS
@@ -276,10 +279,11 @@ def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
         smooth, restrict, prolong = ((_smooth_fm, _restrict_fm, _prolong_fm) if fm
                                      else (_smooth, _restrict, _prolong))
     A = L.A_fm if fm else L.A
+    step = functools.partial(_smooth_step_fm if fm else _smooth_step, smooth, L, omega)
     with _level_span(L, r.device):
-        z = smooth(L, omega, r)
+        z = step(r)
         for _ in range(n_smooth[0] - 1):
-            z = z + smooth(L, omega, r - A(z))
+            z = step(r, z, A(z))
         rc = restrict(L, r - A(z))
     # from level 0, every coarser level and the bottom solve: "port.pc.coarse"
     with (device_span("port.pc.coarse", r.device) if l == 0 else contextlib.nullcontext()):
@@ -287,8 +291,22 @@ def _vcycle(levels, bot_inv, n_smooth, omega, l, r, fm=False, bot_b=1):
     with _level_span(L, r.device):
         z = z + prolong(L, zc)
         for _ in range(n_smooth[1]):
-            z = z + smooth(L, omega, r - A(z))
+            z = step(r, z, A(z))
     return z
+
+
+def _smooth_step(smooth, L, omega: float, r, z=None, y=None):
+    """z + smooth(L, ω, r − y), y = A z; smooth(L, ω, r) without z."""
+    return smooth(L, omega, r) if z is None else z + smooth(L, omega, r - y)
+
+
+def _smooth_step_fm(smooth, L, omega: float, r, z=None, y=None):
+    """The same on field-major vectors: one K6 launch on the card, `smooth`
+    its plain version on the CPU (the level's Dinv cell-major, its cells g to
+    a site on a supercell level)."""
+    g = L.factor if isinstance(L, _Level) else 1
+    return block_jacobi.run(functools.partial(smooth, L, omega), L.Dinv, "cell", g, omega, r,
+                            z, y)
 
 
 def _level_span(L, device: torch.device):

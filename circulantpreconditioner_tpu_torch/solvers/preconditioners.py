@@ -6,8 +6,10 @@ ILU(0).
 ILU(0) is factored on the host in float64 and applied on the vectors' device
 by level-scheduled triangular solves: the rows of one level do not depend on
 one another, so each level is one gather-multiply-sum and one indexed write.
-There is no hand-written kernel here; the JAX package applies it by gathers
-too (no Pallas kernel)."""
+There is no hand-written kernel there; the JAX package applies it by gathers
+too (no Pallas kernel). The field-major point-block Jacobi (`pbjacobi_fm`)
+runs as kernel K6 on the card (ops/block_jacobi.py), and so does the
+multiplicative composite's z + Ms(r − A z) when Ms is one."""
 
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from circulantpreconditioner_tpu_torch.ops import block_jacobi
 from circulantpreconditioner_tpu_torch.ops.csr import BSRMatrix, CSRMatrix
 from circulantpreconditioner_tpu_torch.solvers.gmres import _identity
 from circulantpreconditioner_tpu_torch.utils.profiling import device_span
@@ -67,7 +70,24 @@ def _site_block_diag_apply_fm(DinvT: torch.Tensor, r: torch.Tensor) -> torch.Ten
     return torch.einsum("kijn,kjn->kin", DinvT, r.reshape(g, b, -1)).reshape(-1)
 
 
-def pbjacobi_fm(A: BSRMatrix, shift: float = 0.0, cells_per_site: int = 1):
+class PointBlockJacobiFM:
+    """`pbjacobi_fm`'s apply M⁻¹ r, and `fused(r, z, y)` = z + M⁻¹ (r − y):
+    one K6 launch each on the card, the einsum on the CPU."""
+
+    def __init__(self, DinvT: torch.Tensor, g: int):
+        self.DinvT, self.g = DinvT, g
+        self._plain = functools.partial(
+            _block_diag_apply_fm if g == 1 else _site_block_diag_apply_fm, DinvT)
+
+    def __call__(self, r: torch.Tensor) -> torch.Tensor:
+        return self.fused(r)
+
+    def fused(self, r: torch.Tensor, z: torch.Tensor | None = None,
+              y: torch.Tensor | None = None) -> torch.Tensor:
+        return block_jacobi.run(self._plain, self.DinvT, "field", self.g, 1.0, r, z, y)
+
+
+def pbjacobi_fm(A: BSRMatrix, shift: float = 0.0, cells_per_site: int = 1) -> PointBlockJacobiFM:
     """pbjacobi for field-major flat vectors. With one cell a site
     x.reshape(b, n) is the field view and the inverted blocks are stored
     (b, b, n). On a supercell mesh (cells_per_site = g > 1, cell g·s + k the
@@ -77,13 +97,12 @@ def pbjacobi_fm(A: BSRMatrix, shift: float = 0.0, cells_per_site: int = 1):
     Dinv = _inverted_diagonal_blocks(A, shift)  # (n, b, b)
     g = int(cells_per_site)
     if g == 1:
-        DinvT, apply = Dinv.transpose(1, 2, 0), _block_diag_apply_fm
+        DinvT = Dinv.transpose(1, 2, 0)
     else:
         n, b = Dinv.shape[0], Dinv.shape[1]
         DinvT = Dinv.reshape(n // g, g, b, b).transpose(1, 2, 3, 0)
-        apply = _site_block_diag_apply_fm
-    return functools.partial(apply, torch.as_tensor(np.ascontiguousarray(DinvT)).to(
-        device=A.blocks.device, dtype=A.blocks.dtype))
+    return PointBlockJacobiFM(torch.as_tensor(np.ascontiguousarray(DinvT)).to(
+        device=A.blocks.device, dtype=A.blocks.dtype), g)
 
 
 def _cell_major_adapter_apply(apply_cm, m: int, r: torch.Tensor) -> torch.Tensor:
@@ -114,12 +133,16 @@ def additive(*appliers: Callable):
 def _multiplicative_apply(A, coarse, smoother, r):
     with device_span("port.pc.coarse", r.device):
         z = coarse(r)
+    fused = getattr(smoother, "fused", None)
+    if fused is not None:
+        return fused(r, z, A(z))
     return z + smoother(r - A(z))
 
 
 def multiplicative(A: Callable, coarse: Callable, smoother: Callable):
     """Multiplicative two-level cycle z = Mc r; z += Ms (r − A z) (PETSc
-    PCCOMPOSITE MULTIPLICATIVE)."""
+    PCCOMPOSITE MULTIPLICATIVE). A smoother with a `fused(r, z, y)` method
+    (`pbjacobi_fm`'s) computes z + Ms (r − y) itself, y = A z."""
     return functools.partial(_multiplicative_apply, A, coarse, smoother)
 
 

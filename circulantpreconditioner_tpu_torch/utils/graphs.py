@@ -31,13 +31,14 @@ as CUDA graphs captured from its plain PyTorch code:
   a pinned slot and records an event; the host reads a slot after waiting on
   its event, L iterations behind the device (the lookahead), so the card
   always has work queued. On the CPU the flags are read directly.
-- Kernel launch counts. K1 to K5 count their launches where their
+- Kernel launch counts. K1 to K6 count their launches where their
   wrappers launch them, in Python, which a replay does not reach. A graph
   records how many launches of each it captured (the capture itself launches
   nothing and counts nothing), and every replay adds them. An iteration that
   a lookahead queued past the stop runs masked and launches its kernels all
   the same: they are counted, and `STATS.masked_launches` holds them apart.
-  The V-cycle's level visits (`STATS.vcycle_levels_fused`, `_plain`) are
+  The V-cycle's level visits (`STATS.vcycle_levels_fused`, `_plain`) and
+  the point-block Jacobi applies (`STATS.block_jacobi_fused`, `_plain`) are
   counted in Python too, and a graph replays them the same way.
 - `STATS` sums over all solves and steps: iterations kept and masked, the
   masked iterations' launches, graph replays, eager calls, host waits and
@@ -74,6 +75,7 @@ from circulantpreconditioner_tpu_torch.utils.profiling import (
 
 @functools.lru_cache(maxsize=1)  # imported once: every graph replay credits the counters
 def _kernel_classes() -> tuple:
+    from circulantpreconditioner_tpu_torch.ops.block_jacobi import BlockJacobiKernel
     from circulantpreconditioner_tpu_torch.ops.complex_matmul import ComplexMatmulKernel
     from circulantpreconditioner_tpu_torch.ops.fused_circulant import FusedCirculantSolver
     from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
@@ -81,27 +83,33 @@ def _kernel_classes() -> tuple:
     from circulantpreconditioner_tpu_torch.ops.vcycle_sweep import VCycleSweepKernel
 
     return (FusedCirculantSolver, PlaneStencilMatvec, ComplexMatmulKernel, TierMatmulKernel,
-            VCycleSweepKernel)
+            VCycleSweepKernel, BlockJacobiKernel)
 
 
 def kernel_launches() -> tuple[int, ...]:
-    """The launch counters of K1, K2, K3, K4 and K5, in that order."""
+    """The launch counters of K1 to K6, in that order."""
     return tuple(cls.launches for cls in _kernel_classes())
 
 
 def credit(counts: tuple[int, ...], sign: int = 1) -> None:
-    """Add (sign = 1) or take back (sign = −1) launches of K1 to K5."""
+    """Add (sign = 1) or take back (sign = −1) launches of K1 to K6."""
     for cls, n in zip(_kernel_classes(), counts):
         cls.launches += sign * n
 
 
-def _level_visits() -> tuple[int, int]:
-    return STATS.vcycle_levels_fused, STATS.vcycle_levels_plain
+# the STATS counters of the paths a step function took in Python (K5's level
+# visits, K6's applies, and those their plain versions ran): replayed with it
+_PATHS = ("vcycle_levels_fused", "vcycle_levels_plain", "block_jacobi_fused",
+          "block_jacobi_plain")
 
 
-def _credit_levels(visits: tuple[int, int], sign: int = 1) -> None:
-    STATS.vcycle_levels_fused += sign * visits[0]
-    STATS.vcycle_levels_plain += sign * visits[1]
+def _path_counts() -> tuple[int, ...]:
+    return tuple(getattr(STATS, name) for name in _PATHS)
+
+
+def _credit_paths(counts: tuple[int, ...], sign: int = 1) -> None:
+    for name, n in zip(_PATHS, counts):
+        setattr(STATS, name, getattr(STATS, name) + sign * n)
 
 
 def _diff(after: tuple[int, ...], before: tuple[int, ...]) -> tuple[int, ...]:
@@ -113,7 +121,7 @@ class SolveStats:
     solves: int = 0
     iterations: int = 0  # iterations kept: the JAX while_loops' trips
     masked: int = 0  # iterations run past the stop, masked
-    masked_launches: tuple[int, ...] = (0,) * 5  # K1 to K5 launched by the masked ones
+    masked_launches: tuple[int, ...] = (0,) * 6  # K1 to K6 launched by the masked ones
     replays: int = 0  # graph replays
     eager_calls: int = 0  # step functions run eagerly (on the CPU, uncaptured, warm-ups)
     waits: int = 0  # host waits on a flag event
@@ -122,6 +130,8 @@ class SolveStats:
     capture_seconds: float = 0.0  # warm-up and capture of the graphs
     vcycle_levels_fused: int = 0  # V-cycle visits of levels below the fine one run by K5
     vcycle_levels_plain: int = 0  # ... run by the plain PyTorch stages
+    block_jacobi_fused: int = 0  # field-major point-block Jacobi applies run by K6
+    block_jacobi_plain: int = 0  # ... run by their plain versions (einsum)
 
     def reset(self) -> None:
         for f in fields(self):
@@ -154,15 +164,15 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class _Graph:
-    """A captured step function: its graph, the K1 to K5 launches and the
-    V-cycle level visits it holds, and its device spans' marker nodes,
+    """A captured step function: its graph, the K1 to K6 launches and the
+    path counts (`_PATHS`) it holds, and its device spans' marker nodes,
     enabled while `traced`."""
 
-    __slots__ = ("graph", "counts", "visits", "markers", "traced")
+    __slots__ = ("graph", "counts", "paths", "markers", "traced")
 
     def __init__(self, graph: torch.cuda.CUDAGraph, counts: tuple[int, ...],
-                 visits: tuple[int, int], markers: list):
-        self.graph, self.counts, self.visits = graph, counts, visits
+                 paths: tuple[int, ...], markers: list):
+        self.graph, self.counts, self.paths = graph, counts, paths
         self.markers, self.traced = markers, True
         self.follow_profiler()
 
@@ -192,7 +202,7 @@ class GraphSet:
         self._pool = None
 
     def run(self, key: Hashable, fn: Callable[[], None]) -> tuple[int, ...]:
-        """Run the step function `fn`, saved under `key`; returns the K1 to K5
+        """Run the step function `fn`, saved under `key`; returns the K1 to K6
         launches it made, which the counters already hold."""
         if not self.capture:
             before = kernel_launches()
@@ -206,7 +216,7 @@ class GraphSet:
         entry.graph.replay()
         STATS.replays += 1
         credit(entry.counts)
-        _credit_levels(entry.visits)
+        _credit_paths(entry.paths)
         return entry.counts
 
     @host_spanned("port.capture")
@@ -221,7 +231,7 @@ class GraphSet:
         with torch.cuda.stream(side):
             before = kernel_launches()
             fn()  # this call's work, and the warm-up before capture
-            ran, ran_visits = kernel_launches(), _level_visits()
+            ran, ran_paths = kernel_launches(), _path_counts()
             graph = torch.cuda.CUDAGraph(keep_graph=True)  # kept: the markers are its nodes
             markers = []
             graph.capture_begin(pool=self._pool)
@@ -240,10 +250,10 @@ class GraphSet:
             graph.instantiate()
             counts = _diff(kernel_launches(), ran)
             credit(counts, -1)  # a capture launches nothing
-            visits = _diff(_level_visits(), ran_visits)
-            _credit_levels(visits, -1)
+            paths = _diff(_path_counts(), ran_paths)
+            _credit_paths(paths, -1)
         current.wait_stream(side)
-        self._graphs[key] = _Graph(graph, counts, visits, markers)
+        self._graphs[key] = _Graph(graph, counts, paths, markers)
         STATS.eager_calls += 1
         STATS.captures += 1
         STATS.capture_seconds += time.perf_counter() - t0
