@@ -2807,9 +2807,8 @@ def k5_stage_cost(L, stage: str, zc: bool = False) -> tuple[float, float]:
 def k5_phase(dev: torch.device, smi: str, mi) -> dict:
     """Phase 26: K5 against its plain versions on the levels below the fine
     one of path D's grid V-cycle (Kershaw NW^3: the 32^3 and 16^3 Galerkin
-    levels, m = 4, float32): each stage, in the layouts the path uses and
-    the others, and a whole apply_fm against the same hierarchy on the
-    V-cycle's generic stages; each stage and the coarse part of an apply
+    levels, m = 4, float32): each stage, and a whole apply_fm against the
+    same hierarchy on the V-cycle's generic stages; each stage and the coarse part of an apply
     timed by CUDA-graph replay beside its plain version and its bound.
     Returns K5's entry of the kernels line, less its launches by path."""
     import copy
@@ -2824,10 +2823,10 @@ def k5_phase(dev: torch.device, smi: str, mi) -> dict:
     pc = ap.GridVCyclePC.from_grid_model(mi.divergence, (NW,) * 3, A0_apply=mi.implicit_matvec(),
                                          A0_apply_fm=mi.implicit_matvec_fm(), shift=1.0,
                                          dtype=f32)
-    generic = copy.copy(pc)  # the same levels, their stencils taken away: the generic stages
-    generic.levels = tuple(dataclasses.replace(L, stencil=None) if isinstance(L, ap._GridLevel)
-                           else L for L in pc.levels)
-    coarse = [l for l in range(len(pc.levels)) if ap._fusable(pc.levels, l, f32, pc.n_smooth)]
+    generic = copy.copy(pc)  # the same levels on the generic stages
+    generic.levels = tuple(dataclasses.replace(L, stages=ap._GRID) if L.stages is ap._K5 else L
+                           for L in pc.levels)
+    coarse = [l for l, L in enumerate(pc.levels) if L.stages is ap._K5]
     check(coarse == [1, 2], f"K5: path D's hierarchy fuses levels {coarse}, not [1, 2]")
     rng = np.random.default_rng(26)
 
@@ -2843,23 +2842,16 @@ def k5_phase(dev: torch.device, smi: str, mi) -> dict:
         L = pc.levels[l]
         label = "x".join(map(str, L.shape_xyz))
         N, Nc = int(np.prod(L.shape_xyz)), int(np.prod(L.cshape_xyz))
-        cm = l + 1 == len(pc.levels)  # the level above the dense bottom hands it cell-major
         r, z, zc = rand(L.b * N), rand(L.b * N), rand(L.b * Nc)
-        # (K5, plain) pairs: the path's layout first (timed), then the other and the
+        # (K5, plain) pairs: the V(1,1) visit's three (timed), then the
         # pre-smoothing sweep (checked only)
         pairs = {
             "smooth": (lambda: vs.smooth_cuda(L.Dinv, r, omega),
                        lambda: ap._grid_smooth_fm(L, omega, r)),
-            "restrict": (lambda: vs.restrict_cuda(L.stencil, L.cnt_inv, L.cshape_xyz, r, z, cm),
-                         lambda: ap._restrict_plain(L, r, z, cm)),
-            "sweep": (lambda: vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, omega, r, z, zc, cm),
-                      lambda: ap._sweep_plain(L, omega, r, z, zc, cm)),
-            "restrict, other layout": (
-                lambda: vs.restrict_cuda(L.stencil, L.cnt_inv, L.cshape_xyz, r, z, not cm),
-                lambda: ap._restrict_plain(L, r, z, not cm)),
-            "sweep, other layout": (
-                lambda: vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, omega, r, z, zc, not cm),
-                lambda: ap._sweep_plain(L, omega, r, z, zc, not cm)),
+            "restrict": (lambda: vs.restrict_cuda(L.stencil, L.cnt_inv, L.cshape_xyz, r, z),
+                         lambda: ap._GRID.restrict(L, r, z)),
+            "sweep": (lambda: vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, omega, r, z, zc),
+                      lambda: ap._sweep_plain(L, omega, r, z, zc)),
             "sweep, no prolongation": (
                 lambda: vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, omega, r, z),
                 lambda: ap._sweep_plain(L, omega, r, z)),
@@ -2899,8 +2891,7 @@ def k5_phase(dev: torch.device, smi: str, mi) -> dict:
     # bottom solve), as path D's span port.pc.coarse holds it
     L1 = pc.levels[1]
     rc = rand(L1.b * int(np.prod(L1.shape_xyz)))
-    part = {name: (lambda lv=lv: ap._vcycle(lv, pc.bot_inv, pc.n_smooth, omega, 1, rc, fm=True,
-                                            bot_b=pc.b))
+    part = {name: (lambda lv=lv: ap._vcycle(lv, pc.bot_inv, pc.n_smooth, omega, 1, rc))
             for name, lv in (("K5", pc.levels), ("plain", generic.levels))}
     nb = pc.bot_inv.shape[0]
     part_flops = 2.0 * nb * nb
@@ -2960,7 +2951,7 @@ def k6_phase(dev: torch.device, smi: str) -> dict:
                 .contiguous(), g)
             return pj.DinvT, pj._plain, 1.0
         if g == 1:
-            L = ap._GridLevel(A=None, Dinv=D, cnt_inv=None, shape_xyz=(S, 1, 1),
+            L = ap._GridLevel(Dinv=D, cnt_inv=None, shape_xyz=(S, 1, 1),
                               cshape_xyz=(-(-S // 2), 1, 1), b=b)
             return D, lambda v: ap._grid_smooth_fm(L, omega, v), omega
         L = ap._Level(A=None, Dinv=D, cnt_inv=None, n=g * S, b=b, factor=g, n_agg=S)

@@ -505,7 +505,8 @@ def pc_table_case(n: int, *, device, dtype=F32, names=PC_NAMES, mesh=None
             pj),
         "gridmg": lambda: GridVCyclePC.from_grid_model(
             model.divergence, mesh.topology_shape, cells_per_site=1,
-            A0_apply=model.implicit_matvec(), shift=1.0, dtype=dtype).apply,
+            A0_apply=model.implicit_matvec(), A0_apply_fm=model.implicit_matvec_fm(), shift=1.0,
+            dtype=dtype).apply,
         "aggvcycle": lambda: AggregationVCyclePC.from_bsr(
             model.divergence, A0_apply=model.implicit_matvec(), shift=1.0, factor=4,
             bottom_max=600, dtype=dtype).apply,

@@ -3,11 +3,11 @@
 // fine one) in three kinds of sweep over a flat grid of N sites, m ≤ 8
 // fields each, with the level's 7-point varying stencil A (per offset o_k a
 // coefficient field C_k, (m, m, N)), its inverted diagonal blocks Dinv
-// (N, m, m) and the next level's grid of 2×2×2 boxes:
+// (N, m, m) and the next level's grid of 2×2×2 boxes, every vector
+// field-major:
 //
 //   k5_smooth    z   = ω·Dinv·r
-//   k5_restrict  rc  = cnt_inv · Σ_box (r − A z)        (field-major or
-//                      cell-major, the bottom solve's order)
+//   k5_restrict  rc  = cnt_inv · Σ_box (r − A z)
 //   k5_sweep     z'  = z + P zc,  out = z' + ω·Dinv·(r − A z')
 //                      (zc absent: out = z + ω·Dinv·(r − A z))
 //
@@ -135,7 +135,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
     k5_restrict_kernel(const T* __restrict__ r, const T* __restrict__ z, Stencil<T> st,
-                       const T* __restrict__ cnt_inv, T* __restrict__ rc, Grid g, int cm_out) {
+                       const T* __restrict__ cnt_inv, T* __restrict__ rc, Grid g) {
   const int N = g.nx * g.ny * g.nz;
   const int Nc = g.cx * g.cy * g.cz;
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -172,7 +172,7 @@ __global__ void __launch_bounds__(kThreads)
   if (c < Nc && k == 0) {
     const T w = __ldg(cnt_inv + c);
 #pragma unroll
-    for (int i = 0; i < M; ++i) rc[cm_out ? c * M + i : (long long)i * Nc + c] = res[i] * w;
+    for (int i = 0; i < M; ++i) rc[(long long)i * Nc + c] = res[i] * w;
   }
 }
 
@@ -180,7 +180,7 @@ template <typename T, int M>
 __global__ void __launch_bounds__(kThreads)
     k5_sweep_kernel(const T* __restrict__ r, const T* __restrict__ z, const T* __restrict__ zc,
                     Stencil<T> st, const T* __restrict__ dinv, T* __restrict__ out, Grid g,
-                    int zc_cm, T omega) {
+                    T omega) {
   const int N = g.nx * g.ny * g.nz;
   const int Nc = g.cx * g.cy * g.cz;
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
@@ -192,8 +192,7 @@ __global__ void __launch_bounds__(kThreads)
     if (zc != nullptr) {
       const long long p = parent(q, g);
 #pragma unroll
-      for (int j = 0; j < M; ++j)
-        x[j] = x[j] + __ldg(zc + (zc_cm ? p * M + j : (long long)j * Nc + p));
+      for (int j = 0; j < M; ++j) x[j] = x[j] + __ldg(zc + (long long)j * Nc + p);
     }
   };
   T acc[M], zn[M], res[M];
@@ -248,12 +247,12 @@ cudaError_t smooth(const void* r, const void* dinv, void* z, int N, int m, doubl
 
 template <typename T>
 cudaError_t restrict_(const void* r, const void* z, const Stencil<T>& st, const void* cnt_inv,
-                      void* rc, const Grid& g, int m, int cm_out, cudaStream_t stream) {
+                      void* rc, const Grid& g, int m, cudaStream_t stream) {
   const long long threads = 8LL * g.cx * g.cy * g.cz;
 #define K5_LAUNCH(M)                                                                    \
   k5_restrict_kernel<T, M><<<blocks_for(threads), kThreads, 0, stream>>>(               \
       static_cast<const T*>(r), static_cast<const T*>(z), st,                           \
-      static_cast<const T*>(cnt_inv), static_cast<T*>(rc), g, cm_out)
+      static_cast<const T*>(cnt_inv), static_cast<T*>(rc), g)
   K5_SWITCH_M(m, K5_LAUNCH)
 #undef K5_LAUNCH
   return cudaGetLastError();
@@ -261,13 +260,13 @@ cudaError_t restrict_(const void* r, const void* z, const Stencil<T>& st, const 
 
 template <typename T>
 cudaError_t sweep(const void* r, const void* z, const void* zc, const Stencil<T>& st,
-                  const void* dinv, void* out, const Grid& g, int m, int zc_cm, double omega,
+                  const void* dinv, void* out, const Grid& g, int m, double omega,
                   cudaStream_t stream) {
   const long long N = (long long)g.nx * g.ny * g.nz;
 #define K5_LAUNCH(M)                                                                  \
   k5_sweep_kernel<T, M><<<blocks_for(N), kThreads, 0, stream>>>(                      \
       static_cast<const T*>(r), static_cast<const T*>(z), static_cast<const T*>(zc), st, \
-      static_cast<const T*>(dinv), static_cast<T*>(out), g, zc_cm, (T)omega)
+      static_cast<const T*>(dinv), static_cast<T*>(out), g, (T)omega)
   K5_SWITCH_M(m, K5_LAUNCH)
 #undef K5_LAUNCH
   return cudaGetLastError();
@@ -305,12 +304,10 @@ int k5_smooth(const void* r, const void* dinv, void* z, long long N, int m, doub
 }
 
 // coefs: K host pointers to (m, m, N) fields, offsets: K flat offsets;
-// shape: nx, ny, nz, cx, cy, cz; cnt_inv (Nc,); rc (m, Nc), or (Nc, m) when
-// cm_out.
+// shape: nx, ny, nz, cx, cy, cz; cnt_inv (Nc,); rc (m, Nc).
 int k5_restrict(const void* r, const void* z, const void* const* coefs,
                 const long long* offsets, int K, const void* cnt_inv, void* rc,
-                const int* shape, int m, int cm_out, int dtype, int device,
-                void* stream_ptr) {
+                const int* shape, int m, int dtype, int device, void* stream_ptr) {
   if (K < 1 || K > kMaxOffsets || !grid_ok(shape, m)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -318,18 +315,17 @@ int k5_restrict(const void* r, const void* z, const void* const* coefs,
   const Grid g = make_grid(shape);
   if (dtype == 0)
     return restrict_<float>(r, z, make_stencil<float>(coefs, offsets, K, g), cnt_inv, rc, g, m,
-                            cm_out, stream);
+                            stream);
   if (dtype == 1)
     return restrict_<double>(r, z, make_stencil<double>(coefs, offsets, K, g), cnt_inv, rc, g, m,
-                             cm_out, stream);
+                             stream);
   return cudaErrorInvalidValue;
 }
 
-// zc (m, Nc), or (Nc, m) when zc_cm, or null (no prolongation); out (m, N),
-// not z.
+// zc (m, Nc), or null (no prolongation); out (m, N), not z.
 int k5_sweep(const void* r, const void* z, const void* zc, const void* const* coefs,
              const long long* offsets, int K, const void* dinv, void* out, const int* shape,
-             int m, int zc_cm, double omega, int dtype, int device, void* stream_ptr) {
+             int m, double omega, int dtype, int device, void* stream_ptr) {
   if (K < 1 || K > kMaxOffsets || !grid_ok(shape, m)) return cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return err;
@@ -337,10 +333,10 @@ int k5_sweep(const void* r, const void* z, const void* zc, const void* const* co
   const Grid g = make_grid(shape);
   if (dtype == 0)
     return sweep<float>(r, z, zc, make_stencil<float>(coefs, offsets, K, g), dinv, out, g, m,
-                        zc_cm, omega, stream);
+                        omega, stream);
   if (dtype == 1)
     return sweep<double>(r, z, zc, make_stencil<double>(coefs, offsets, K, g), dinv, out, g, m,
-                         zc_cm, omega, stream);
+                         omega, stream);
   return cudaErrorInvalidValue;
 }
 

@@ -58,8 +58,8 @@ _SIGNATURES = {
     "k4_row_words": [_I],
     "k4_error_string": [_I],
     "k5_smooth": [_P] * 3 + [_L, _I, ctypes.c_double, _I, _I, _P],
-    "k5_restrict": [_P, _P, _PP, _LP, _I, _P, _P, _IP] + [_I] * 4 + [_P],
-    "k5_sweep": [_P, _P, _P, _PP, _LP, _I, _P, _P, _IP, _I, _I, ctypes.c_double, _I, _I, _P],
+    "k5_restrict": [_P, _P, _PP, _LP, _I, _P, _P, _IP] + [_I] * 3 + [_P],
+    "k5_sweep": [_P, _P, _P, _PP, _LP, _I, _P, _P, _IP, _I, ctypes.c_double, _I, _I, _P],
     "k5_error_string": [_I],
     "k6_block_jacobi": [_P] * 5 + [_L, _I, _I, _I, ctypes.c_double, _I, _I, _P],
     "k6_error_string": [_I],

@@ -7,13 +7,14 @@ m fields over its N sites:
 
 - `smooth_cuda`: z = ω·Dinv·r;
 - `restrict_cuda`: rc = cnt_inv·Σ_box (r − A z), the next level's right-hand
-  side, field-major or, for the dense bottom solve, cell-major;
+  side;
 - `sweep_cuda`: z' = z + P zc, then z' + ω·Dinv·(r − A z'); without zc one
   more smoothing step z + ω·Dinv·(r − A z).
 
-A is the level's `VaryingStencilOperator` in the flat layout. The plain
-versions, with the same stage boundaries, are the stage functions of
-solvers/aggregation_pc.py, which run them on CPU tensors; there is no
+A is the level's `VaryingStencilOperator` in the flat layout; every vector,
+the next level's included, is field-major. The plain versions, with the same
+stage boundaries, are the stage functions of solvers/aggregation_pc.py,
+which run them on CPU tensors; there is no
 fallback from the kernel to them on the card. Each launch counts in
 `VCycleSweepKernel.launches`. The JAX package has no Pallas kernel here:
 XLA fuses its jnp V-cycle.
@@ -118,9 +119,9 @@ def smooth_cuda(Dinv: torch.Tensor, r: torch.Tensor, omega: float) -> torch.Tens
 
 
 def restrict_cuda(stencil, cnt_inv: torch.Tensor, cshape_xyz, r: torch.Tensor,
-                  z: torch.Tensor, cm: bool = False) -> torch.Tensor:
+                  z: torch.Tensor) -> torch.Tensor:
     """rc = cnt_inv·Σ_box (r − A z) on the next level's grid, (m, Nc)
-    field-major flat, or (Nc, m) cell-major flat when `cm`; one launch."""
+    field-major flat; one launch."""
     from circulantpreconditioner_tpu_torch.native.build import load_library
 
     m, N = stencil.m, _n_sites(stencil)
@@ -134,17 +135,15 @@ def restrict_cuda(stencil, cnt_inv: torch.Tensor, cshape_xyz, r: torch.Tensor,
     coefs, offsets, K = _stencil_args(stencil)
     rc = torch.empty(m * Nc, dtype=r.dtype, device=r.device)
     _launched(lib, lib.k5_restrict(r.data_ptr(), z.data_ptr(), coefs, offsets, K,
-                                   cnt_inv.data_ptr(), rc.data_ptr(), grid, m, int(cm),
+                                   cnt_inv.data_ptr(), rc.data_ptr(), grid, m,
                                    _DTYPE_CODE[r.dtype], r.device.index or 0, _stream(r)))
     return rc
 
 
 def sweep_cuda(stencil, Dinv: torch.Tensor, cshape_xyz, omega: float, r: torch.Tensor,
-               z: torch.Tensor, zc: torch.Tensor | None = None,
-               zc_cm: bool = False) -> torch.Tensor:
-    """z' = z + P zc (zc field-major, or cell-major when `zc_cm`; no
-    prolongation when zc is None), then z' + ω·Dinv·(r − A z'); one launch
-    into a new tensor."""
+               z: torch.Tensor, zc: torch.Tensor | None = None) -> torch.Tensor:
+    """z' = z + P zc (no prolongation when zc is None), then
+    z' + ω·Dinv·(r − A z'); one launch into a new tensor."""
     from circulantpreconditioner_tpu_torch.native.build import load_library
 
     m, N = stencil.m, _n_sites(stencil)
@@ -161,6 +160,6 @@ def sweep_cuda(stencil, Dinv: torch.Tensor, cshape_xyz, omega: float, r: torch.T
     out = torch.empty_like(r)
     _launched(lib, lib.k5_sweep(r.data_ptr(), z.data_ptr(), None if zc is None else zc.data_ptr(),
                                 coefs, offsets, K, Dinv.data_ptr(), out.data_ptr(), grid, m,
-                                int(zc_cm), float(omega), _DTYPE_CODE[r.dtype],
+                                float(omega), _DTYPE_CODE[r.dtype],
                                 r.device.index or 0, _stream(r)))
     return out

@@ -150,7 +150,7 @@ class SlabGridVCyclePC:
             Dinv = L.Dinv.reshape(nz, ny * nx, b, b)[z0:z0 + nzP].reshape(-1, b, b).contiguous()
             A_fm = fine if not levels else SlabFmStencil(L.stencil, mesh, axis)
             levels.append(_GridLevel(
-                A=None, Dinv=Dinv, cnt_inv=L.cnt_inv[z0 // 2:(z0 + nzP) // 2].contiguous(),
+                Dinv=Dinv, cnt_inv=L.cnt_inv[z0 // 2:(z0 + nzP) // 2].contiguous(),
                 shape_xyz=(nx, ny, nzP), cshape_xyz=(cx, cy, nzP // 2), b=b, A_fm=A_fm))
         self.levels = tuple(levels)
         # the gather: the first replicated level (len(pc.levels): the bottom)
@@ -205,14 +205,12 @@ class SlabGridVCyclePC:
         nz, nzP, z0, plane = self._gz
         full = self._gather(r, plane)
         pc = self.pc
-        z = _vcycle(pc.levels, pc.bot_inv, pc.n_smooth, pc.omega, self.gather_level, full,
-                    fm=True, bot_b=self.b)
+        z = _vcycle(pc.levels, pc.bot_inv, pc.n_smooth, pc.omega, self.gather_level, full)
         return z.reshape(self.b, nz, plane)[:, z0:z0 + nzP].reshape(-1)
 
     def apply(self, r: torch.Tensor) -> torch.Tensor:
         """z = M⁻¹ r on this rank's flat field-major fine slab."""
-        return _vcycle(self.levels, self._replicated, self.pc.n_smooth, self.pc.omega, 0, r,
-                       fm=True, bot_b=self.b)
+        return _vcycle(self.levels, self._replicated, self.pc.n_smooth, self.pc.omega, 0, r)
 
     __call__ = apply
 

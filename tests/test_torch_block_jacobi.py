@@ -70,7 +70,7 @@ class _Site:
         S = D.shape[0] // g
         self.name, self.g, self.b = name, g, b
         if name == "grid":
-            L = ap._GridLevel(A=None, Dinv=D, cnt_inv=None, shape_xyz=(S, 1, 1),
+            L = ap._GridLevel(Dinv=D, cnt_inv=None, shape_xyz=(S, 1, 1),
                               cshape_xyz=(-(-S // 2), 1, 1), b=b)
             self.omega = OMEGA
             self.call = lambda r, zn=None, y=None: ap._smooth_step_fm(ap._grid_smooth_fm, L,

@@ -3,18 +3,19 @@ coarse levels as fused sweeps.
 
 On the CPU (tier 1): the fused stages in their plain versions, which CPU
 tensors run, reproduce the V-cycle's generic stages (`_vcycle` on the same
-hierarchy with its levels' stencils taken away) in float64, through
-`apply_fm` and the cell-major `apply`; the dispatch keeps periodic
-(grid_last) levels, a level above one, stencils of m > 8, the fine level and
-a V-cycle without post-smoothing on the generic stages; `STATS` counts every
-CPU visit of a level below the fine one as plain and K5 launches nothing.
-The GPU tests (marker `gpu`, skipped without a card) hold each K5 stage to
-its plain version in float32 and float64, on the Galerkin levels of Kershaw
-16³, 32³ and 64³ wall meshes (64³'s are the 32³ and 16³ levels of the main
-path), an odd grid (boxes truncated at the far faces, cnt_inv ≠ 1/8) and a
-scalar (m = 1) transport operator; a whole `apply_fm` and `apply` to the
-generic V-cycle; a flat level above a periodic one; and a captured
-V-cycle's replays to its eager run, bit for bit. The Kershaw levels are
+hierarchy with its levels' stages set to the generic ones) in float64,
+through `apply_fm` and the cell-major `apply`; the stages chosen at build
+keep periodic (grid_last) levels, stencils of m > 8, the fine level and a
+V-cycle without post-smoothing on the generic stages, and give a flat level
+above a periodic one K5's; `STATS` counts every CPU visit of a level below
+the fine one as plain and K5 launches nothing. The GPU tests (marker `gpu`,
+skipped without a card) hold each K5 stage to its plain version in float32
+and float64, on the Galerkin levels of Kershaw 16³, 32³ and 64³ wall meshes
+(64³'s are the 32³ and 16³ levels of the main path), an odd grid (boxes
+truncated at the far faces, cnt_inv ≠ 1/8) and a scalar (m = 1) transport
+operator; a whole `apply_fm` and `apply` to the generic V-cycle; a flat
+level above a periodic one; and a captured V-cycle's replays to its eager
+run, bit for bit. The Kershaw levels are
 flat-layout: their neighbours at the x and y edges wrap onto zero
 coefficient layers, which both versions read.
 
@@ -36,7 +37,7 @@ from circulantpreconditioner_tpu_torch.utils.graphs import STATS
 OMEGA = 0.8
 
 
-def _wave_pc(n, device, dtype, bottom_max=600):
+def _wave_pc(n, device, dtype, bottom_max=600, n_smooth=(1, 1)):
     from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
     from circulantpreconditioner_tpu_torch.models import WaveSystem
 
@@ -44,10 +45,10 @@ def _wave_pc(n, device, dtype, bottom_max=600):
                        dtype=dtype)
     return ap.GridVCyclePC.from_grid_model(model.divergence, n, A0_apply=model.implicit_matvec(),
                                            A0_apply_fm=model.implicit_matvec_fm(),
-                                           bottom_max=bottom_max, dtype=dtype)
+                                           bottom_max=bottom_max, n_smooth=n_smooth, dtype=dtype)
 
 
-def _transport_pc(n, device, dtype, bottom_max):
+def _transport_pc(n, device, dtype, bottom_max, n_smooth=(1, 1)):
     """A scalar (m = 1) hierarchy: the upwind transport operator on a
     Kershaw mesh as a BSR of 1×1 blocks."""
     from circulantpreconditioner_tpu_torch.mesh import kershaw_mesh
@@ -59,7 +60,8 @@ def _transport_pc(n, device, dtype, bottom_max):
     sp_ = model.divergence.to_scipy().tocoo()
     D = BSRMatrix.from_block_coo(sp_.shape[0], sp_.shape[1], sp_.row, sp_.col,
                                  sp_.data.reshape(-1, 1, 1), device=device, dtype=dtype)
-    return ap.GridVCyclePC.from_grid_model(D, n, bottom_max=bottom_max, dtype=dtype)
+    return ap.GridVCyclePC.from_grid_model(D, n, bottom_max=bottom_max, n_smooth=n_smooth,
+                                           dtype=dtype)
 
 
 # (name, hierarchy function, grid, bottom_max): Kershaw 16³ with two coarse levels, an
@@ -69,9 +71,9 @@ _CPU_CASES = [("kershaw16", _wave_pc, (16, 16, 16), 60),
               ("scalar", _transport_pc, (9, 7, 5), 20)]
 
 
-def _pc(case, device, dtype):
+def _pc(case, device, dtype, n_smooth=(1, 1)):
     _, build, n, bottom_max = case
-    return build(n, device, dtype, bottom_max=bottom_max)
+    return build(n, device, dtype, bottom_max=bottom_max, n_smooth=n_smooth)
 
 
 def _coarse(pc):
@@ -84,11 +86,10 @@ def _rand(n, device, dtype, seed):
 
 
 def _unfused(pc):
-    """The same hierarchy with its levels' stencils taken away: the dispatch
-    sends every level down the V-cycle's generic stages."""
+    """The same hierarchy with the generic stages on every level."""
     plain = copy.copy(pc)
-    plain.levels = tuple(dataclasses.replace(L, stencil=None) if isinstance(L, ap._GridLevel)
-                         else L for L in pc.levels)
+    plain.levels = tuple(dataclasses.replace(L, stages=ap._GRID) if L.stages is ap._K5 else L
+                         for L in pc.levels)
     return plain
 
 
@@ -96,29 +97,29 @@ def _relerr(a, b):
     return ((a - b).abs().max() / b.abs().max()).item()
 
 
-# --- CPU: the plain stages and the dispatch -----------------------------------
+# --- CPU: the plain stages and the stages chosen at build ----------------------
 
 @pytest.mark.parametrize("n_smooth", [(1, 1), (2, 3)])
 @pytest.mark.parametrize("case", _CPU_CASES, ids=[c[0] for c in _CPU_CASES])
 def test_fused_stages_compose_to_vcycle(case, n_smooth):
-    pc = _pc(case, torch.device("cpu"), torch.float64)
+    pc = _pc(case, torch.device("cpu"), torch.float64, n_smooth)
     generic = _unfused(pc).levels
     coarse = _coarse(pc)
     assert coarse and all(pc.levels[l].stencil.layout == "flat" for l in coarse)
     for l in coarse:
         L = pc.levels[l]
-        assert ap._fusable(pc.levels, l, torch.float64, n_smooth)
+        assert L.stages is ap._K5 and generic[l].stages is ap._GRID
         r = _rand(L.b * int(np.prod(L.shape_xyz)), "cpu", torch.float64, l)
-        fused = ap._vcycle_fused(pc.levels, pc.bot_inv, n_smooth, OMEGA, l, r, pc.b)
-        plain = ap._vcycle(generic, pc.bot_inv, n_smooth, OMEGA, l, r, fm=True, bot_b=pc.b)
+        fused = ap._vcycle(pc.levels, pc.bot_inv, n_smooth, OMEGA, l, r)
+        plain = ap._vcycle(generic, pc.bot_inv, n_smooth, OMEGA, l, r)
         assert _relerr(fused, plain) <= 1e-12
 
 
 @pytest.mark.parametrize("case", _CPU_CASES, ids=[c[0] for c in _CPU_CASES])
 def test_fused_path_through_both_applies(case):
-    """apply_fm and the cell-major apply (one relayout in and out of the
-    first fused level) through the fused stages agree with the generic
-    V-cycle; on the CPU, STATS counts every coarse visit as plain."""
+    """apply_fm and the cell-major apply (one relayout pair around apply_fm)
+    through the fused stages agree with the generic V-cycle; on the CPU,
+    STATS counts every coarse visit as plain."""
     from circulantpreconditioner_tpu_torch.ops.vcycle_sweep import VCycleSweepKernel
 
     pc = _pc(case, torch.device("cpu"), torch.float64)
@@ -154,36 +155,34 @@ def test_odd_grid_truncates_boxes():
     assert (cnt != 0.125).any() and (cnt == 0.125).any()
 
 
-def _level_with(stencil, L):
-    return ap._GridLevel(A=None, Dinv=L.Dinv, cnt_inv=L.cnt_inv, shape_xyz=L.shape_xyz,
-                         cshape_xyz=L.cshape_xyz, b=stencil.m, A_fm=None, stencil=stencil)
-
-
 def test_dispatch_sends_what_k5_cannot_take_to_the_plain_path():
+    """The stages each level gets when the hierarchy is built."""
     from circulantpreconditioner_tpu_torch.ops.stencil import VaryingStencilOperator
 
-    f64 = torch.float64
-    pc = _wave_pc((16, 16, 16), torch.device("cpu"), f64, bottom_max=60)
-    levels = pc.levels
-    assert ap._fusable(levels, 1, f64, (1, 1)) and ap._fusable(levels, 1, f64, (2, 3))
-    assert not ap._fusable(levels, 0, f64, (1, 1))  # the fine level (K2 and the einsum)
-    assert not ap._fusable(levels, 1, f64, (1, 0))  # no post-smoothing sweep
-    assert not ap._fusable(levels, 1, torch.float32, (1, 1))  # float64 coefficients
+    f64, cpu = torch.float64, torch.device("cpu")
+    levels = _wave_pc((16, 16, 16), cpu, f64, bottom_max=60).levels
+    assert levels[1].stages is ap._K5 and levels[2].stages is ap._K5
+    assert _wave_pc((16, 16, 16), cpu, f64, 60, (2, 3)).levels[1].stages is ap._K5
+    assert levels[0].stages is ap._GRID  # the fine level (K2 and K6)
+    # no post-smoothing sweep to carry the prolongation
+    assert _wave_pc((16, 16, 16), cpu, f64, 60, (1, 0)).levels[1].stages is ap._GRID
+    flat = levels[1].stencil
+    assert ap._coarse_stages(flat, torch.float32, (1, 1)) is ap._GRID  # float64 coefficients
     # a periodic (grid_last) level: the 2-site y axis of the odd grid's first coarse level
-    odd = _wave_pc((9, 4, 6), torch.device("cpu"), f64, bottom_max=20)
-    assert odd.levels[1].stencil.layout == "grid_last"
-    assert not ap._fusable(odd.levels, 1, f64, (1, 1))
+    odd = _wave_pc((9, 4, 6), cpu, f64, bottom_max=20)
+    assert odd.levels[1].stencil.layout == "grid_last" and odd.levels[1].stages is ap._GRID
     # m > 8 (a supercell-dense stencil)
-    flat = levels[1]
-    nz, ny, nx = flat.stencil.shape_zyx
+    nz, ny, nx = flat.shape_zyx
     wide = VaryingStencilOperator.from_arrays(
-        (nz, ny, nx), 9, flat.stencil.offsets,
-        [np.zeros((9, 9, nz * ny * nx)) for _ in flat.stencil.offsets], "flat",
-        device=torch.device("cpu"), dtype=f64)
-    assert not ap._fusable((levels[0], _level_with(wide, flat)), 1, f64, (1, 1))
+        (nz, ny, nx), 9, flat.offsets, [np.zeros((9, 9, nz * ny * nx)) for _ in flat.offsets],
+        "flat", device=cpu, dtype=f64)
+    assert ap._coarse_stages(wide, f64, (1, 1)) is ap._GRID
     # the windowed levels of the algebraic V-cycle
-    alg = ap._Level(A=None, Dinv=flat.Dinv, cnt_inv=flat.cnt_inv, n=8, b=4, factor=4, n_agg=2)
-    assert not ap._fusable((levels[0], alg), 1, f64, (1, 1))
+    alg = ap._Level(A=None, Dinv=levels[1].Dinv, cnt_inv=levels[1].cnt_inv, n=8, b=4, factor=4,
+                    n_agg=2)
+    assert alg.stages is ap._CELL
+    # a grid_last level no longer holds back the flat level above it
+    assert [L.stages for L in _mixed_pc(cpu, f64).levels[1:]] == [ap._K5, ap._GRID]
 
 
 def _mixed_pc(device, dtype):
@@ -194,20 +193,19 @@ def _mixed_pc(device, dtype):
     return pc
 
 
-def test_flat_level_above_grid_last_keeps_generic_stages():
-    """The fused stages recurse field-major, and a grid_last level has no
-    field-major operator: the flat level above it stays on the generic
-    stages, and the cell-major apply runs as without stencils."""
+def test_flat_level_above_grid_last_runs_fused_stages():
+    """A grid_last level runs its stencil's field-major apply: the flat level
+    above it runs the fused stages, as the generic ones would, and apply_fm
+    equals the cell-major apply in the other layout."""
     f64 = torch.float64
     pc = _mixed_pc(torch.device("cpu"), f64)
-    assert not ap._fusable(pc.levels, 1, f64, pc.n_smooth)
-    assert not ap._fusable(pc.levels, 2, f64, pc.n_smooth)
+    assert pc.levels[1].stages is ap._K5 and pc.levels[2].stages is ap._GRID
     g = _rand(4 * 18 * 8 * 12, "cpu", f64, 7)
     STATS.reset()
     assert _relerr(pc.apply(g), _unfused(pc).apply(g)) <= 1e-12
     assert (STATS.vcycle_levels_fused, STATS.vcycle_levels_plain) == (0, 4)
-    with pytest.raises(ValueError, match="grid_last"):
-        pc.apply_fm(g)
+    z_fm = pc.apply_fm(g.reshape(-1, 4).T.reshape(-1)).reshape(4, -1).T.reshape(-1)
+    assert _relerr(z_fm, pc.apply(g)) <= 1e-12
 
 
 # --- GPU: the kernel against its plain versions --------------------------------
@@ -249,14 +247,13 @@ def test_k5_stages_match_plain(cuda, case, dtype):
         before = vs.VCycleSweepKernel.launches
         pairs = [(vs.smooth_cuda(L.Dinv, r, OMEGA), ap._grid_smooth_fm(L, OMEGA, r)),
                  (vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, OMEGA, r, z),
-                  ap._sweep_plain(L, OMEGA, r, z))]
-        for cm in (False, True):
-            pairs += [(vs.restrict_cuda(L.stencil, L.cnt_inv, L.cshape_xyz, r, z, cm),
-                       ap._restrict_plain(L, r, z, cm)),
-                      (vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, OMEGA, r, z, zc, cm),
-                       ap._sweep_plain(L, OMEGA, r, z, zc, cm))]
+                  ap._sweep_plain(L, OMEGA, r, z)),
+                 (vs.restrict_cuda(L.stencil, L.cnt_inv, L.cshape_xyz, r, z),
+                  ap._GRID.restrict(L, r, z)),
+                 (vs.sweep_cuda(L.stencil, L.Dinv, L.cshape_xyz, OMEGA, r, z, zc),
+                  ap._sweep_plain(L, OMEGA, r, z, zc))]
         torch.cuda.synchronize()
-        assert vs.VCycleSweepKernel.launches == before + 6
+        assert vs.VCycleSweepKernel.launches == before + 4
         for got, want in pairs:
             assert _relerr(got, want) <= tol
 
@@ -286,9 +283,10 @@ def test_k5_applies_match_plain_vcycle(cuda, case, dtype):
 
 
 @pytest.mark.gpu
-def test_k5_leaves_a_level_above_grid_last_alone(cuda):
-    """On the card too, a flat level above a periodic one keeps the generic
-    stages: no K5 launch, the cell-major apply as without stencils."""
+def test_k5_runs_a_level_above_grid_last(cuda):
+    """On the card, K5 runs a flat level above a periodic one (three
+    launches), the periodic level the generic stages; the apply as on the
+    generic stages."""
     from circulantpreconditioner_tpu_torch.ops.vcycle_sweep import VCycleSweepKernel
 
     pc = _mixed_pc(cuda, torch.float32)
@@ -297,9 +295,9 @@ def test_k5_leaves_a_level_above_grid_last_alone(cuda):
     before = VCycleSweepKernel.launches
     out = pc.apply(g)
     torch.cuda.synchronize()
-    assert VCycleSweepKernel.launches == before
-    assert (STATS.vcycle_levels_fused, STATS.vcycle_levels_plain) == (0, 2)
-    assert torch.equal(out, _unfused(pc).apply(g))
+    assert VCycleSweepKernel.launches == before + 3
+    assert (STATS.vcycle_levels_fused, STATS.vcycle_levels_plain) == (1, 1)
+    assert _relerr(out, _unfused(pc).apply(g)) <= 10 * _TOL[torch.float32]
 
 
 @pytest.mark.gpu

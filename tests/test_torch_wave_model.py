@@ -105,8 +105,9 @@ def test_grid_vcycle_matches_jax():
 
 def test_grid_vcycle_levels_and_transfers():
     """Odd extents (truncated boxes): restriction of a prolonged vector is the
-    identity, in both layouts, on grid levels and on a supercell mesh's
-    first level; a periodic level has no field-major form."""
+    identity on grid levels (field-major) and on a supercell mesh's first
+    level (both layouts); on a periodic grid apply_fm runs the grid_last
+    levels' field-major stencils and equals the cell-major apply."""
     from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh
     from circulantpreconditioner_tpu_torch.solvers import aggregation_pc as ag
 
@@ -116,11 +117,10 @@ def test_grid_vcycle_levels_and_transfers():
         for y in range(ny):
             for x in range(nx):
                 cnt[z // 2, y // 2, x // 2] += 1
-    L = ag._GridLevel(A=None, Dinv=torch.zeros(nx * ny * nz, b, b),
+    L = ag._GridLevel(Dinv=torch.zeros(nx * ny * nz, b, b),
                       cnt_inv=torch.as_tensor((1.0 / cnt)[..., None]),
                       shape_xyz=(nx, ny, nz), cshape_xyz=(3, 2, 2), b=b)
     zc = torch.as_tensor(np.random.default_rng(3).standard_normal(12 * b))
-    _close(ag._grid_restrict(L, ag._grid_prolong(L, zc)), zc, 1e-15)
     _close(ag._grid_restrict_fm(L, ag._grid_prolong_fm(L, zc)), zc, 1e-15)
     # a supercell mesh (6 tets per site): an aggregation level first, whose
     # transfers are reshapes in both layouts
@@ -138,8 +138,17 @@ def test_grid_vcycle_levels_and_transfers():
     per = TWave(cartesian_mesh(((-0.5, 0.5),) * 3, (12, 10, 8), periodic=True), cfl=10.0,
                 device=CPU, dtype=torch.float64)
     pc = TGrid.from_grid_model(per.divergence, (12, 10, 8), bottom_max=100)
-    with pytest.raises(ValueError, match="field-major"):
-        pc.apply_fm(torch.zeros(per.mesh.n_cells * 4, dtype=torch.float64))
+    assert [L.stencil.layout for L in pc.levels[1:]] == ["grid_last"]
+    r = torch.as_tensor(np.random.default_rng(5).standard_normal(per.mesh.n_cells * b))
+    z_fm = pc.apply_fm(r.reshape(-1, b).T.reshape(-1)).reshape(b, -1).T.reshape(-1)
+    _close(z_fm, pc.apply(r).numpy(), 1e-12)
+    # and the JAX package's cell-major apply, whose periodic levels run cell-major
+    from circulantpreconditioner_tpu.mesh.structured import cartesian_mesh as j_cartesian
+
+    perj = JWave(j_cartesian(((-0.5, 0.5),) * 3, (12, 10, 8), periodic=True), cfl=10.0,
+                 dtype=jnp.float64)
+    pj = JGrid.from_grid_model(perj.divergence, (12, 10, 8), bottom_max=100, dtype=jnp.float64)
+    _close(pc.apply(r), pj.apply(jnp.asarray(r.numpy())), 1e-12)
 
 
 @pytest.mark.parametrize("n", [8, 12])
