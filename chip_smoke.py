@@ -1,4 +1,4 @@
-"""GPU smoke run of the PyTorch port's main paths, with kernels K1 to K6
+"""GPU smoke run of the PyTorch port's main paths, with kernels K1 to K7
 checked and timed.
 
     python3 chip_smoke.py
@@ -7,7 +7,7 @@ Needs one CUDA GPU (exits 1 without one) and the repository beside this file.
 Phases, one stdout line each (more for the drivers' own logs):
 
 1. device: the card's name, and its name and power limit from nvidia-smi;
-2. build K1 to K6 (csrc/*.cu) from the sources, one nvcc per source,
+2. build K1 to K7 (csrc/*.cu) from the sources, one nvcc per source,
    timed; ptxas's report of K1 and K3; the count of tensor-core instructions
    (HMMA, HGMMA) in the SASS of each of K3's float32 kernels (cuobjdump),
    which must not be 0;
@@ -258,10 +258,20 @@ Phases, one stdout line each (more for the drivers' own logs):
    GMRES evict them) and again warm. Phase 9 checks K6's launches on path D
    (two an apply: the fine level's pre- and post-smoothing, none plain),
    phase 18 on path J (two an apply at the site level).
+28. kernel K7 (csrc/supercell_stencil.cu, the tet meshes' supercell SpMV in
+   the wave normal form): against its plain version (SupercellNormalOperator.
+   plain_fm on the card) in float32 and float64 at Kershaw-tet 12³ and in
+   float32 at 50³, max|y_K7 − y_plain| ≤ 1e-5 · max|y_plain| (float64:
+   1e-12), each also against the block-sparse SupercellStencilOperator and,
+   cell-major, against the assembled BSR matvec; timed at 50³ by CUDA-graph
+   replay with its inputs rotated past the L2, and warm, beside the plain
+   version, the block-sparse stencil and its least bytes (the bound
+   supercell_spmv_roofline reads, 35.7 µs). Phase 18 checks K7's launches on
+   path J (one an apply, none plain).
 Paths G to J launch none of K1 to K4 (path J's grid V-cycle runs its levels
 below the site level in K5), phase 20's sharded drivers none of K1 to K3
 (circulant2l's slab solve runs K4 at "high"); their launch counts are
-printed and checked. K1 to K6 count their launches per graph replay
+printed and checked. K1 to K7 count their launches per graph replay
 (utils/graphs.py). The iterations a
 solve queued past its stop (utils.graphs.STATS.masked) run masked and
 launch their kernels all the same: the counts hold them, each check adds
@@ -279,7 +289,9 @@ queued past a stop; K5's `ms`, `plain_ms` and `bound_ms` are those of the
 coarse part of one 64³ V-cycle apply, its `stages` each stage's at 32³ and
 16³, and it has no library counterpart; K6's those of Kershaw 64³'s fused
 post-sweep with its inputs out of L2, its `forms` every shape's and form's,
-and its plain version, the einsum, is the library call), and as the last line
+and its plain version, the einsum, is the library call; K7's those of the
+50³ apply with its inputs out of L2, the block-sparse stencil its library
+call), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Any failed check raises, and the script exits non-zero without that line.
 """
@@ -1249,10 +1261,10 @@ def fft_pc_phases(dev: torch.device, smi: str, mesh64, mi) -> dict:
 
 
 def kernel_launches() -> dict[str, int]:
-    """The launch counters of K1 to K6."""
+    """The launch counters of K1 to K7."""
     from circulantpreconditioner_tpu_torch.utils import graphs
 
-    return dict(zip(("K1", "K2", "K3", "K4", "K5", "K6"), graphs.kernel_launches()))
+    return dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), graphs.kernel_launches()))
 
 
 def reset_kernel_launches() -> None:
@@ -1902,7 +1914,7 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     from circulantpreconditioner_tpu_torch.mesh import kershaw_tet_mesh
     from circulantpreconditioner_tpu_torch.models import WaveSystem
     from circulantpreconditioner_tpu_torch.models.transport import _identity_plus
-    from circulantpreconditioner_tpu_torch.ops.stencil import SupercellStencilOperator
+    from circulantpreconditioner_tpu_torch.ops.stencil import SupercellNormalOperator
     from circulantpreconditioner_tpu_torch.solvers import make_gmres
     from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
 
@@ -1928,14 +1940,14 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     S = we.supercell_operator
     torch.cuda.synchronize()
     t_sc = time.perf_counter() - t0
-    check(isinstance(S, SupercellStencilOperator), "no block-sparse supercell operator at NJ^3")
-    coef_bytes = sum(C.numel() * C.element_size() for C in S.coefs)
+    check(isinstance(S, SupercellNormalOperator), "no supercell normal form at NJ^3")
+    coef_bytes = sum(C.numel() * C.element_size() for C in S.arrays)
     n_sites, n = NJ**3, D.shape[0]
     print(f"[18 host build] Kershaw-tet {NJ}^3, eps 0.3: {mesh.n_cells} tets, {mesh.n_faces} "
           f"faces, {n} unknowns, {nnzb} non-zero 4x4 blocks; mesh {t_mesh:.2f} s, assembly (BSR "
-          f"on the card) {t_bsr:.2f} s, supercell operator {t_sc:.2f} s "
-          f"({sum(map(len, S.pair_idx))} sub-block pairs over {len(S.offsets)} offsets, "
-          f"{coef_bytes / 1e6:.1f} MB of coefficients)", flush=True)
+          f"on the card) {t_bsr:.2f} s, supercell normal form {t_sc:.2f} s "
+          f"({S.F} face slots a tet, offsets {sorted({o for r in S.slot_offset for o in r})}, "
+          f"{coef_bytes / 1e6:.1f} MB of tables)", flush=True)
 
     x = torch.as_tensor(rng.standard_normal(n), **f32)
     y_bsr = D.matvec(x)
@@ -1947,17 +1959,16 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     check(rel_cm <= TOL_KERNEL and rel_fm <= TOL_KERNEL,
           f"the supercell SpMV is off the BSR matvec: {rel_cm:.3e}, {rel_fm:.3e}")
     g = we.pack_fm(x)
-    prof = device_profile(lambda: S.matvec_fm(g), calls=5)
+    prof = device_profile(lambda: S.matvec_fm(g), calls=20)
     sc_ms = median_ms({"S": lambda: S.matvec_fm(g), "BSR": lambda: D.matvec(x)}, calls=10,
                       repeats=5)
     sc_graph = graph_ms(lambda: S.matvec_fm(g), calls=10, repeats=5)
-    sc_bound, sc_by = bound(2.0 * sum(len(p) for p in S.pair_idx) * 16 * n_sites,
-                            coef_bytes + 2 * 4 * n)
-    print(f"[18 supercell SpMV] one field-major apply: {sum(prof.counts.values()) / 5:.0f} kernel "
+    sc_bound, sc_by = bound(2.0 * nnzb * 16, coef_bytes + 2 * 4 * n)
+    print(f"[18 supercell SpMV] one field-major apply: {sum(prof.counts.values()) / 20:.0f} kernel "
           f"launches, {sc_ms['S']:.4f} ms by CUDA events, {sc_graph:.4f} ms by CUDA-graph replay, "
           f"device {sum(prof.values()):.4f} ms (profiler); the BSR matvec {sc_ms['BSR']:.4f} ms "
           f"by CUDA events; bound {sc_bound:.4f} ms ({sc_by}: {(coef_bytes + 8 * n) / 1e6:.1f} "
-          f"MB, coefficients, x and y once); {smi}", flush=True)
+          f"MB, K7's tables, x and y once); {smi}", flush=True)
 
     step_fm, step_bsr = we.explicit_stepper_fm(), we.explicit_stepper("matrix")
     G, U = we.pack_fm(we.initial_state()), we.initial_state()
@@ -2006,7 +2017,7 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     Dmv = wi.divergence.matvec
     G0 = G = wi.pack_fm(wi.initial_state()).reshape(-1)
     its, conv, walls, true_res, snaps = [], [], [], [], []
-    k5_0, k6_0 = kernel_launches()["K5"], kernel_launches()["K6"]
+    k5_0, k6_0, k7_0 = (kernel_launches()[k] for k in ("K5", "K6", "K7"))
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2035,6 +2046,14 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
           f"applies)", flush=True)
     check(bj_f * below == 2 * fused and bj_p == 0 and k6_j == bj_f,
           f"path J: {k6_j} K6 launches, block-Jacobi applies fused {bj_f} and plain {bj_p}")
+    k7_j = kernel_launches()["K7"] - k7_0
+    sc_f = sum(sn["supercell_fused"] for sn in snaps)
+    sc_p = sum(sn["supercell_plain"] for sn in snaps)
+    print(f"[18 main path J] K7 launches in the two solves {k7_j}: supercell SpMV applies "
+          f"fused {sc_f}, plain {sc_p} (GMRES's A and the site level's two residuals)",
+          flush=True)
+    check(sc_f > 0 and sc_p == 0 and k7_j == sc_f,
+          f"path J: {k7_j} K7 launches, supercell SpMV applies fused {sc_f} and plain {sc_p}")
     # the first step again, warm: bench_suite.py times this solve from U0 on the TPU
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -2100,14 +2119,15 @@ def path_j_phases(dev: torch.device, smi: str) -> dict[str, int]:
     wd = WaveSystem(kershaw_tet_mesh(((0.0, 1.0),) * 3, (nd,) * 3), cfl=1e3 / 3, **f32)
     x = torch.randn(wd.divergence.shape[0], **f32)
     forms = {"dense M = 24, cell-major ('varying')": wd.divergence_op("varying"),
-             "block-sparse, field-major (the explicit driver's)": wd.divergence_op_fm(flat=True)}
+             "the normal form in K7, field-major (the explicit driver's)":
+                 wd.divergence_op_fm(flat=True)}
     ms = median_ms({k: functools.partial(f, x) for k, f in forms.items()}, calls=10, repeats=5)
     print(f"[18 times] one D apply at Kershaw-tet {nd}^3: " + "; ".join(
         f"{k} {ms[k]:.4f} ms by CUDA events, {graph_ms(functools.partial(f, x), 10, 5):.4f} by "
         f"graph replay" for k, f in forms.items()) + f"; {smi}", flush=True)
 
     launched = kernel_launches()
-    print(f"[18] K1 to K6 launches on path J: {launched} (K1 to K4 0 expected: no TPU kernel "
+    print(f"[18] K1 to K7 launches on path J: {launched} (K1 to K4 0 expected: no TPU kernel "
           f"lies on it); phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     check(not any(launched[k] for k in ("K1", "K2", "K3", "K4")),
           f"path J launched a TPU kernel's port: {launched}")
@@ -2404,7 +2424,7 @@ def distributed_phases(dev: torch.device, smi: str, mesh64, path_c_state,
     t_phase = time.perf_counter()
     rng = np.random.default_rng(20)
     f32 = dict(device=dev, dtype=torch.float32)
-    launched = dict.fromkeys(("K1", "K2", "K3", "K4", "K5", "K6"), 0)
+    launched = dict.fromkeys(kernel_launches(), 0)
 
     def sharded_run(main, argv):
         """The driver captured (its steps, or its GMRES, as graph replays
@@ -3020,6 +3040,104 @@ def k6_phase(dev: torch.device, smi: str) -> dict:
             "forms": forms}
 
 
+# phase 28: kernel K7 at the benchmark cell's shape
+TOL_K7 = {torch.float32: 1e-5, torch.float64: 1e-12}  # max|y_K7 − y_plain| / max|y_plain|
+
+
+def k7_phase(dev: torch.device, smi: str) -> dict:
+    """Phase 28: K7 against its plain version (SupercellNormalOperator.
+    plain_fm, run on the card) in float32 and float64 at Kershaw-tet 12³ and
+    in float32 at NJ³, the benchmark cell's; each also against the
+    block-sparse SupercellStencilOperator, the apply K7 replaced, and K7's
+    cell-major apply against the assembled BSR matvec. Then K7 timed at NJ³
+    by CUDA-graph replay beside the plain version, the block-sparse stencil
+    and its least bytes (the bound of portbench's supercell_spmv_roofline:
+    per tet the 4x4 diagonal block, x and y, per interior face side s and
+    n̂). "cold": the calls rotate through copies of the tables and x that
+    overflow the L2, as in a step; "warm": the same inputs every call.
+    Returns K7's entry of the kernels line, less its launches."""
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_tet_mesh
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+    from circulantpreconditioner_tpu_torch.ops import supercell_stencil as k7
+    from circulantpreconditioner_tpu_torch.ops.stencil import (
+        SupercellNormalOperator,
+        SupercellStencilOperator,
+    )
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(28)
+    errs, worst, worst_abs, built = [], 0.0, 0.0, {}
+    for n, dtype in ((12, torch.float32), (12, torch.float64), (NJ, torch.float32)):
+        model = WaveSystem(kershaw_tet_mesh(((0.0, 1.0),) * 3, (n,) * 3), cfl=1e3 / 3,
+                           device=dev, dtype=dtype)
+        D = model.divergence
+        t0 = time.perf_counter()
+        S = model.supercell_operator
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t0
+        check(isinstance(S, SupercellNormalOperator), f"no supercell normal form at {n}^3")
+        B = SupercellStencilOperator.from_bsr(D, model.mesh.topology_shape, 6)
+        x = torch.as_tensor(rng.standard_normal(D.shape[0]), device=dev, dtype=dtype)
+        g = model.pack_fm(x)
+        y7, yp, yb = k7.supercell_stencil_cuda(S, g), S.plain_fm(g), B.matvec_fm(g)
+        scale = yp.abs().max().item()
+        d = (y7 - yp).abs().max().item()
+        d_b = (y7 - yb).abs().max().item() / scale
+        y_bsr = D.matvec(x)
+        d_cm = (S.matvec(x) - y_bsr).abs().max().item() / y_bsr.abs().max().item()
+        tol = TOL_K7[dtype]
+        errs.append(f"{n}^3 {str(dtype)[6:]}: plain {d / scale:.2e}, block-sparse {d_b:.2e}, "
+                    f"cell-major vs BSR {d_cm:.2e}")
+        check(d / scale <= tol and d_b <= tol and d_cm <= max(tol, TOL_KERNEL),
+              f"K7 at {n}^3 ({dtype}) is off: plain {d / scale:.3e}, block-sparse {d_b:.3e}, "
+              f"BSR {d_cm:.3e}")
+        if dtype == torch.float32:
+            worst, worst_abs = max(worst, d / scale), max(worst_abs, d)
+        if n == NJ:
+            built = dict(model=model, S=S, B=B, g=g, t_build=t_build)
+        del model, D, S, B, x, g, y7, yp, yb, y_bsr
+    print(f"[28 K7] against its plain version and the block-sparse stencil, max|dy|/max|y| "
+          f"(tol {TOL_K7[torch.float32]:g} float32, {TOL_K7[torch.float64]:g} float64): "
+          + "; ".join(errs), flush=True)
+
+    S, B, g0 = built["S"], built["B"], built["g"]
+    diag, s, nvec = S.arrays
+    M, N, m = S.M, S.N, S.m
+    cells, sides = S.g * N, int((s != 0).sum().item())
+    least = 4.0 * (cells * (m * m + 2 * m) + sides * m)  # supercell_spmv_roofline's bytes
+    stream = 4.0 * (cells * (m * m + 2 * m + S.F * m))  # what K7 reads and writes
+    table_mb = sum(a.numel() * a.element_size() for a in S.arrays) / 1e6
+    sparse_mb = sum(C.numel() * C.element_size() for C in B.coefs) / 1e6
+    copies = max(2, int(np.ceil(2 * L2_BYTES / stream)))
+    ops = [S] + [SupercellNormalOperator(S.shape_zyx, S.m, S.g, S.c0, S.slot_offset, S.slot_col,
+                                         tuple(a.clone() for a in S.arrays))
+                 for _ in range(copies - 1)]
+    xs = [g0] + [torch.randn_like(g0) for _ in range(copies - 1)]
+
+    def rotated(fn, turn=[0]):
+        def call():
+            turn[0] += 1
+            return fn(ops[turn[0] % copies], xs[turn[0] % copies])
+        return call
+
+    b_ms, b_by = bound(cells * (2.0 * m * m + S.F * (4 * (m - 1) + 8)), least)
+    ms = graph_ms(rotated(k7.supercell_stencil_cuda))
+    times = {"K7": ms, "K7 warm": graph_ms(lambda: k7.supercell_stencil_cuda(S, g0)),
+             "plain": graph_ms(rotated(lambda op, x: op.plain_fm(x)), calls=10, repeats=5),
+             "block-sparse": graph_ms(lambda: B.matvec_fm(g0), calls=10, repeats=5)}
+    print(f"[28 K7 times] Kershaw-tet {NJ}^3, float32, CUDA-graph replay, ms per apply: "
+          + "; ".join(f"{k} {v:.5f}" for k, v in times.items())
+          + f"; bound {b_ms:.5f} ({b_by}: {least / 1e6:.2f} MB least, K7 streams "
+          f"{stream / 1e6:.2f} MB), K7 at {100 * b_ms / ms:.1f} % of it ({copies} input sets "
+          f"rotated); tables {table_mb:.1f} MB against the block-sparse {sparse_mb:.1f} MB; host "
+          f"build of the normal form "
+          f"{built['t_build']:.2f} s; phase 28 took {time.perf_counter() - t_phase:.1f} s; "
+          f"{smi}", flush=True)
+    return {"max_abs_err": worst_abs, "max_rel_err": worst, "ms": ms,
+            "warm_ms": times["K7 warm"], "plain_ms": times["plain"], "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": times["block-sparse"], "table_mb": table_mb}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this run needs a GPU",
@@ -3057,7 +3175,7 @@ def main() -> int:
 
     lib_path, build_s = build.build(force=True)
     build.load_library()
-    print(f"[2 build] K1 to K6 built from csrc/ in {build_s:.2f} s", flush=True)
+    print(f"[2 build] K1 to K7 built from csrc/ in {build_s:.2f} s", flush=True)
     ptxas = lib_path.with_suffix(".log").read_text().splitlines()
     for i, line in enumerate(ptxas):  # K1's and K3's register and shared-memory report
         if "Compiling entry function" in line and ("k3_cmm" in line or "k1_" in line):
@@ -3324,6 +3442,8 @@ def main() -> int:
     lap("26")
     k6 = k6_phase(dev, smi)
     lap("27")
+    k7 = k7_phase(dev, smi)
+    lap("28")
     j_path = f"J Kershaw-tet {NJ}^3 and the tet drivers"
     d_path = "20 the sharded drivers (parallel/)"
     b_path = "23 bench.py flagship and bench_suite.py rows at 16^3"
@@ -3394,6 +3514,15 @@ def main() -> int:
         **k6, "launches_by_path": {f"D wave_implicit gridmg {NW}^3": path_d["k6"],
                                    j_path: j_launches["K6"], d_path: d_launches["K6"],
                                    b_path: b_launches["K6"], v_path: v_launches["K6"]},
+    }, {
+        "name": "supercell_stencil (K7)",
+        "route": "cuda",
+        "source": "circulantpreconditioner_tpu_torch/csrc/supercell_stencil.cu",
+        "replaces": "none: XLA runs the JAX package's block-sparse supercell stencil "
+                    "(circulantpreconditioner_tpu/ops/stencil.py SupercellStencilOperator)",
+        "launches": j_launches["K7"],
+        **k7, "launches_by_path": {j_path: j_launches["K7"], d_path: d_launches["K7"],
+                                   b_path: b_launches["K7"], v_path: v_launches["K7"]},
     }]}))
     print(f"chip_smoke: {time.perf_counter() - T_START:.1f} s in all", flush=True)
     print(f"card: {smi}")

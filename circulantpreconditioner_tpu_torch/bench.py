@@ -14,7 +14,7 @@ residual gate ‖C x − b‖/‖b‖ < 1e-4 against the full 3D operator's matv
 or the program exits 1. The submetrics time the full-3D formulations under
 the same method: the staged DFT solver as the JAX package builds it
 (`use_kernel=False`), the same solver through kernel K3 (`use_kernel=True`)
-and the fused solver, kernel K1; each with its residual and its K1 to K6
+and the fused solver, kernel K1; each with its residual and its K1 to K7
 launches per solve, all at the "high" tier (`precision` in the record). The
 SciPy pipeline (rfftn → divide → irfftn) on the host's CPU is
 `vs_baseline`'s yardstick.
@@ -145,7 +145,7 @@ def paired_chain_time(chain: Callable[[int], float], K1: int, K2: int, *,
 
 class GraphChain:
     """A chain x ← fn(x) on the card, `block` links per replay of one CUDA
-    graph (utils/graphs.GraphSet: K1 to K6 count their launches per replay).
+    graph (utils/graphs.GraphSet: K1 to K7 count their launches per replay).
     Calling it with K runs K links from x0 and returns their seconds by CUDA
     events, ended by a synchronise; K is a multiple of `block`. The first
     call captures the graph (after an eager warm-up)."""
@@ -209,14 +209,14 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32) -> tuple[float, 
 
 
 def kernel_counts() -> dict[str, int]:
-    """K1 to K6's launch counters, by name."""
+    """K1 to K7's launch counters, by name."""
     from circulantpreconditioner_tpu_torch.utils.graphs import kernel_launches
 
-    return dict(zip(("K1", "K2", "K3", "K4", "K5", "K6"), kernel_launches()))
+    return dict(zip(("K1", "K2", "K3", "K4", "K5", "K6", "K7"), kernel_launches()))
 
 
 def per_call(before: dict[str, int], calls: int) -> dict[str, float]:
-    """Launches of K1 to K6 per call since the counts `before`."""
+    """Launches of K1 to K7 per call since the counts `before`."""
     return {k: (v - before[k]) / max(calls, 1) for k, v in kernel_counts().items()}
 
 
@@ -353,7 +353,7 @@ def flagship_record(*, device: torch.device | str = "cuda", log=print) -> dict:
         t = paired_chain_time(chain, K1, K2, device=dev, bound_ms=b_ms)
         launches = per_call(before, chain.links - links)
         log(f"bench: {name} {1 / t.per_s:.1f} solves/s ({t.per_s * 1e3:.6f} ms; partner "
-            f"{t.partner * 1e3:.6f} ms, {len(t.pairs)} pairs), K1 to K6 launches per solve "
+            f"{t.partner * 1e3:.6f} ms, {len(t.pairs)} pairs), K1 to K7 launches per solve "
             f"{launches}")
         if name == "flagship":
             rate = 1.0 / t.per_s

@@ -19,7 +19,7 @@ GMRES and CG) at the row's full size in float32 on the card:
 | transport_implicit | transport_implicit_step_ms_100cubed | GMRES + circulant PC (right, restart 8); PCNONE (left) |
 | wave_explicit | wave_explicit_step_us_kershaw64 | explicit_stepper_fm, captured chunks (K2) |
 | spmv, spmv64 | spmv_gnnz_per_s_kershaw{32,64} | renormalised chain of divergence_op_fm (K2) |
-| spmv_tet | spmv_gnnz_per_s_tet16 | the same on tet_mesh 16³ (block-sparse supercell) |
+| spmv_tet | spmv_gnnz_per_s_tet16 | the same on tet_mesh 16³ (supercell normal form, K7) |
 | wave_implicit, 32, 64 | wave_implicit_step_ms_kershaw{16,32,64} | field-major GMRES + grid V-cycle (K2); at 16³ also dct2lm, dct2l, circulant2l |
 | wave_dct_direct | wave_dct_direct_us_per_step_64cubed | dct_fft_stepper_fm, captured chunks |
 | diffusion_implicit | diffusion_implicit_step_ms_64cubed | CG on the wall mesh; the periodic FFT step |
@@ -56,7 +56,7 @@ device time beside). The rows whose solvers take a precision tier run the
 JAX rows' "high" (bf16×3 through K4 on the card: transport_implicit's dense
 PC, the DCT solves of dct2l, dct2lm and wave_dct_direct, the distributed
 circulant2l's slab solve) and say so in `precision`; `launches_per_step`
-counts K1 to K6. The SpMV rows and the explicit step carry
+counts K1 to K7. The SpMV rows and the explicit step carry
 `bound_ms`: the bytes of D's coefficients, its input and its output over the
 memory rate (the operations of 2 per stored entry are far below it).
 
@@ -184,10 +184,11 @@ def tensor_bytes(obj, seen: set | None = None) -> int:
 
 def operator_bytes(model) -> int:
     """Bytes of the field-major D's coefficients: the wave normal form (K2's
-    operands) or, on a supercell mesh, the block-sparse supercell operator."""
+    operands) or, on a supercell mesh, the supercell operator's tensors (K7's
+    tables, or the block-sparse form's)."""
     if model.cells_per_site == 1:
         return tensor_bytes(model.normal_operator.arrays)
-    return tensor_bytes(model.supercell_operator.coefs)
+    return tensor_bytes(model.supercell_operator)
 
 
 def spmv_bound(model, nnz: int) -> tuple[float, str]:
@@ -754,7 +755,7 @@ def bench_wave_ilu(s: Suite, n: int = 32) -> dict:
 def ladder_top_case(n: int, *, device, dtype=F32, mesh=None):
     """Kershaw-tet n³ (6 tets per hex) at cfl 1e3/3 through the model's own
     field-major route (drivers/wave_implicit.py --pc gridmg): GMRES (right,
-    rtol atol 1e-5, maxiter 1000) over the block-sparse supercell operator,
+    rtol atol 1e-5, maxiter 1000) over the supercell operator (K7 on the card),
     preconditioned by the grid V-cycle whose fine level is the model's
     operator."""
     from circulantpreconditioner_tpu_torch.mesh import kershaw_tet_mesh
@@ -799,7 +800,7 @@ def bench_ladder_top(s: Suite, n: int = 50) -> dict:
            "pc": f"grid-vcycle ({pc.n_levels} levels)", "gmres_iters": c.iters,
            "converged": c.converged, "device_ms_per_step": t["device_ms_per_step"],
            "launches_per_step": t["launches_per_step"], "chain": t["chain"],
-           "spmv_route": "block-sparse supercell stencil (field-major)",
+           "spmv_route": f"{type(c.extra['model'].supercell_operator).__name__} (field-major)",
            "spmv_gnnz_per_s": nnz / (t_spmv["ms"] / 1e3) / 1e9, "nnz": nnz,
            "spmv_ms_per_apply": t_spmv["ms"], "spmv_bound_ms": b_ms, "spmv_bound_by": b_by,
            "explicit_us_per_step": t_exp["ms"] * 1e3, "operator_dev_mb": op_mb,

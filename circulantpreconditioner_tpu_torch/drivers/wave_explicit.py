@@ -3,8 +3,8 @@
 Explicit upwind stepping Uⁿ⁺¹ = Uⁿ − D Uⁿ on the 50×50 square or any ported
 mesh, cfl = 1/dim, stationarity ‖dUⁿ‖₂ < 1e-5. On meshes with a gather-free
 stencil form the loop runs field-major (state (fm_block, nSites)); on the GPU
-its D is kernel K2 on the Kershaw hexahedra and the block-sparse supercell
-stencil on the tet meshes. `--shard` runs the expl_mpi workload, one process
+its D is kernel K2 on the Kershaw hexahedra and K7, the supercell normal
+form, on the tet meshes. `--shard` runs the expl_mpi workload, one process
 per device: the distributed MatMult loop (:90-135) with a z-slab stencil and
 plane halos (slab, topologically structured meshes) or a row-sharded ELL
 SpMV (rows, any mesh), ‖ΔU‖₂ reduced over the ranks, and the output gathered

@@ -23,10 +23,10 @@ matvec (and the grid V-cycle's fine level, and dct2lm's second operator
 apply) is kernel K2. ilu0, bjacobi and aggvcycle run the cell-major loop, as
 in the JAX driver: they have no field-major form. On the tet meshes
 (--mesh-family tetra|kershawtet) the field view groups the 6 cells of a site,
-(24, nSites): GMRES's matvec is the block-sparse supercell stencil, gridmg's
-V-cycle runs its field-major apply from the site level down, pbjacobi takes
-the site's 6 blocks, and the projection PCs' cell-major coarse solve is
-wrapped by one relayout of that view. The JAX driver runs cell-major over
+(24, nSites): GMRES's matvec is the supercell normal form (kernel K7 on the
+GPU), gridmg's V-cycle runs its field-major apply from the site level down,
+pbjacobi takes the site's 6 blocks, and the projection PCs' cell-major
+coarse solve is wrapped by one relayout of that view. The JAX driver runs cell-major over
 the dense supercell stencil (M = 24) there.
 
 `--shard rows` is the impl_mpi workload, one process per device: GMRES over
@@ -164,8 +164,8 @@ def _preconditioners(args, mesh, model, device, dtype):
             raise ValueError("--pc gridmg needs a mesh whose topology is a grid")
         from circulantpreconditioner_tpu_torch.solvers.aggregation_pc import GridVCyclePC
 
-        # the model's operators as the fine level's (on a supercell mesh the
-        # block-sparse one: no dense (24×24) form is built)
+        # the model's operators as the fine level's (on a supercell mesh its
+        # supercell operator: no dense (24×24) form is built)
         pc_obj = GridVCyclePC.from_grid_model(
             model.divergence, mesh.topology_shape, cells_per_site=model.cells_per_site,
             A0_apply=model.implicit_matvec(), A0_apply_fm=model.implicit_matvec_fm(),

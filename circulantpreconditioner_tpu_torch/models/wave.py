@@ -6,16 +6,17 @@
   domain centre, else 70e5, velocity 0 (WaveSystem.cxx:25-76);
 - dt = cfl · minRatioVolSurf / c0;
 - the block upwind divergence D (ops/assembly.py) with Wall, Periodic and
-  Neumann boundaries, in five forms: the assembled BSR, the cartesian
+  Neumann boundaries, in six forms: the assembled BSR, the cartesian
   stencil, the varying stencil, its wave normal form (one cell per grid
-  site) and, on the tet meshes (6 cells per site), the block-sparse
-  supercell stencil;
+  site) and, on the tet meshes (6 cells per site), the supercell normal
+  form (kernel K7 on the card) or, where D does not decompose, the
+  block-sparse supercell stencil;
 - explicit stepping Uⁿ⁺¹ = Uⁿ − D Uⁿ and implicit GMRES on (I + D), cell-major
   or field-major. Field-major keeps the state as (fm_block, nSites)
   (flattened for GMRES) so no matvec pays an (N, m) ↔ (m, N) relayout; on a
   CUDA device the field-major D is kernel K2 (ops/plane_stencil.py) whenever
-  the operator fits its contract. On the tet meshes D is the block-sparse
-  supercell stencil in both layouts, decomposed on the host from D's blocks
+  the operator fits its contract. On the tet meshes D is the supercell
+  normal form in both layouts, decomposed on the host from D's blocks
   (the dense M = 24 one stays as operator 'varying'), and GMRES runs
   field-major on the (24, nSites) view; the JAX package runs it cell-major
   over the dense stencil there;
@@ -155,24 +156,34 @@ class WaveSystem:
     @cached_property
     @host_spanned("port.setup.operator")
     def supercell_operator(self):
-        """The block-sparse SupercellStencilOperator of D on a supercell mesh,
-        or None where a periodic wrap couples the grid (no flat layout).
-        Decomposed on the host from D's blocks, so the dense form, 2.0 GB in
-        float32 at Kershaw-tet 50³ against this one's eighth of it, is
-        never made on the device."""
-        from circulantpreconditioner_tpu_torch.ops.stencil import SupercellStencilOperator
+        """D on a supercell mesh: its wave normal form
+        (SupercellNormalOperator, kernel K7 on the card) where every
+        off-diagonal sub-block decomposes, else the block-sparse
+        SupercellStencilOperator; None where a periodic wrap couples the grid
+        (no flat layout). Decomposed on the host from D's block COO, so
+        neither the dense form (2.0 GB in float32 at Kershaw-tet 50³) nor,
+        when the normal form is taken, the block-sparse one (240 MB against
+        its 96 MB) is made on the device."""
+        from circulantpreconditioner_tpu_torch.ops.stencil import (
+            SupercellNormalOperator,
+            SupercellStencilOperator,
+        )
 
-        return SupercellStencilOperator.from_bsr(
-            self.divergence, self.mesh.topology_shape,  # type: ignore[attr-defined]
-            self.cells_per_site)
+        rows, cols, blocks = self.divergence.coo_numpy()
+        shape, g = self.mesh.topology_shape, self.cells_per_site  # type: ignore[attr-defined]
+        where = dict(device=self.divergence.blocks.device, dtype=self.divergence.blocks.dtype)
+        S = SupercellNormalOperator.from_blocks(rows, cols, blocks, shape, g, self.c0, **where)
+        if S is not None:
+            return S
+        return SupercellStencilOperator.from_blocks(rows, cols, blocks, shape, g, **where)
 
     def divergence_op(self, operator: str = "auto"):
         """D as a callable on flat cell-major vectors: 'stencil' (cartesian),
         'varying' (gather-free stencil on topologically structured meshes,
         in its wave normal form where it decomposes; the dense form on a
         supercell mesh), 'normal' (that normal form or raise), 'matrix'
-        (assembled BSR), or 'auto', which on a supercell mesh is the
-        block-sparse supercell stencil where it has that form."""
+        (assembled BSR), or 'auto', which on a supercell mesh is
+        `supercell_operator` where the stencil is flat."""
         if operator == "auto":
             if self._homogeneous_bc():
                 operator = "stencil"
@@ -208,9 +219,9 @@ class WaveSystem:
         gather-free stencil form. On a CUDA device the normal form runs in
         kernel K2 when the operator fits its contract (the JAX package takes
         its Pallas kernel on the TPU at the same point); K2's matvec takes
-        either shape. On a supercell mesh D is the block-sparse
-        SupercellStencilOperator where the stencil is flat, else the dense
-        varying one."""
+        either shape. On a supercell mesh D is `supercell_operator` (K7 on
+        the card where it is the normal form) where the stencil is flat,
+        else the dense varying one."""
         if operator == "auto":
             operator = ("varying" if getattr(self.mesh, "topology_shape", None) is not None
                         else "matrix")

@@ -2,7 +2,7 @@
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -Xcompiler -fPIC -c
 
-compiles each `circulantpreconditioner_tpu_torch/csrc/*.cu` (K1 to K6, the span
+compiles each `circulantpreconditioner_tpu_torch/csrc/*.cu` (K1 to K7, the span
 marker) into an object,
 one nvcc process per source, all started together; `nvcc -shared` then links
 them into
@@ -63,6 +63,8 @@ _SIGNATURES = {
     "k5_error_string": [_I],
     "k6_block_jacobi": [_P] * 5 + [_L, _I, _I, _I, ctypes.c_double, _I, _I, _P],
     "k6_error_string": [_I],
+    "k7_supercell_stencil": [_P] * 6 + [_L, _I, _I, _I, ctypes.c_double, _I, _I, _P],
+    "k7_error_string": [_I],
     "span_mark": [_P, _I, _I, _I, _I, _P, ctypes.POINTER(ctypes.c_void_p)],
     "span_set_enabled": [_P, ctypes.POINTER(ctypes.c_void_p), _I, _I],
     "span_error_string": [_I],
@@ -70,7 +72,7 @@ _SIGNATURES = {
 _RESTYPES = {"k1_error_string": ctypes.c_char_p, "k1_scratch_floats": _L,
              "k2_error_string": ctypes.c_char_p, "k3_error_string": ctypes.c_char_p,
              "k4_error_string": ctypes.c_char_p, "k5_error_string": ctypes.c_char_p,
-             "k6_error_string": ctypes.c_char_p,
+             "k6_error_string": ctypes.c_char_p, "k7_error_string": ctypes.c_char_p,
              "span_error_string": ctypes.c_char_p}
 
 

@@ -10,6 +10,10 @@ of circulantpreconditioner_tpu/ops/stencil.py).
   applied with `torch.roll`.
 - `SupercellStencilOperator`: the block-sparse form of a supercell varying
   stencil, only the non-zero (m×m) sub-blocks of each offset.
+- `SupercellNormalOperator`: the wave system's normal form of a supercell
+  stencil, each cell's diagonal block and (s, n̂) per face slot; its apply
+  is kernel K7 on the card (ops/supercell_stencil.py,
+  csrc/supercell_stencil.cu), `plain_fm` its plain version.
 - `WaveNormalStencilOperator`: the wave system's normal form of the varying
   stencil, with (s, n̂) per neighbour instead of a dense block. Its flat
   field-major apply is the plain version of kernel K2
@@ -23,8 +27,10 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from circulantpreconditioner_tpu_torch.ops import supercell_stencil
 from circulantpreconditioner_tpu_torch.ops.assembly import wave_jacobian_blocks
 from circulantpreconditioner_tpu_torch.utils.device import check_real_dtype
+from circulantpreconditioner_tpu_torch.utils.graphs import STATS
 from circulantpreconditioner_tpu_torch.utils.profiling import device_span
 
 
@@ -521,8 +527,9 @@ class SupercellStencilOperator:
 
     def _apply_gt(self, gt: torch.Tensor) -> torch.Tensor:
         """gt (M, N_sites) field-major → the same shape; the device span
-        "port.supercell"."""
+        "port.supercell". Counts in `STATS.supercell_plain`."""
         g, m = self.g, self.m
+        STATS.supercell_plain += 1
         with device_span("port.supercell", gt.device):
             y = torch.zeros((g, m) + gt.shape[1:], dtype=gt.dtype, device=gt.device)
             for off, rows, cols, C in zip(self.offsets, self.rows, self.cols, self.coefs):
@@ -646,3 +653,160 @@ class WaveNormalStencilOperator(_GridStencil):
             for d in range(dim):
                 ys[1 + d] = ys[1 + d] + u * nvec[k, d]
         return torch.stack(ys)
+
+
+def _wave_block(s: np.ndarray, n: np.ndarray, c0: float) -> np.ndarray:
+    """s·(A − |A|)(n̂)/2 (WaveNormalStencilOperator's coupling) from s (...,)
+    and n̂ (..., dim, ...) with the entries' axes in front: (m, m, ...)."""
+    dim = n.shape[0]
+    C = np.empty((dim + 1, dim + 1) + s.shape)
+    C[0, 0] = -0.5 * c0 * s
+    C[1:, 0] = 0.5 * s * n
+    C[0, 1:] = 0.5 * c0 * c0 * s * n
+    C[1:, 1:] = -0.5 * c0 * s * n[:, None] * n[None, :]
+    return C
+
+
+class SupercellNormalOperator:
+    """The wave system's normal form of the supercell stencil (cells_per_site
+    g > 1; the tet meshes: 6 tets a hex): each tet's dense m×m diagonal block
+    (wall mirrors and face sums included) and, for each of its F face slots,
+    the coupling s·(A − |A|)(n̂)/2 of WaveNormalStencilOperator as (s, n̂),
+    read at the flat site offset and sub-column that a table gives per
+    (sub-row, slot), the same for every site. Field-major, site index last:
+
+        diag (g, m, m, N), s (g, F, N), nvec (g, F, m−1, N);
+        slot_offset, slot_col: per (sub-row, slot), Python ints, and K7's
+        copy of them on the device, `table` (2, g, F) int32.
+
+    A slot that couples nothing at a site (a face on the lattice's boundary,
+    or a sub-row with fewer couplings than F) has s = 0 there. The apply, per
+    tet k and site n, with v = x_col(k,f) at n + offset(k,f) (zero outside
+    [0, N)):
+
+        y_k = diag_k · x_k;   for each slot f:  t = n̂·v_vec,
+        y_p += s·c0·(c0·t − p)/2,   y_vec += s·(p − c0·t)/2 · n̂
+
+    On a CUDA tensor it is kernel K7 (ops/supercell_stencil.py), which
+    counts in `STATS.supercell_fused`; `plain_fm`, the plain version, runs
+    CPU tensors (`STATS.supercell_plain`). Both inside the device span
+    "port.supercell". The JAX package has no such form: its tet route is the
+    block-sparse SupercellStencilOperator, which this one equals up to the
+    order of the sums."""
+
+    def __init__(self, shape_zyx, m: int, g: int, c0: float, slot_offset, slot_col, arrays):
+        self.shape_zyx = tuple(int(v) for v in shape_zyx)
+        self.m = int(m)  # per-cell block size (dim+1)
+        self.g = int(g)  # cells per site
+        self.c0 = float(c0)
+        self.slot_offset = tuple(tuple(int(o) for o in r) for r in slot_offset)  # (g, F) flat
+        self.slot_col = tuple(tuple(int(c) for c in r) for r in slot_col)  # (g, F) sub-columns
+        self.arrays = tuple(arrays)  # (diag, s, nvec)
+        # K7's copy of the slot table: (2, g, F) int32, offsets then sub-columns
+        self.table = torch.tensor([self.slot_offset, self.slot_col], dtype=torch.int32,
+                                  device=self.arrays[0].device)
+        self._pad = max((abs(o) for r in self.slot_offset for o in r), default=0)
+
+    @property
+    def M(self) -> int:
+        return self.m * self.g
+
+    @property
+    def F(self) -> int:
+        return len(self.slot_offset[0]) if self.slot_offset else 0
+
+    @property
+    def N(self) -> int:
+        return int(np.prod(self.shape_zyx))
+
+    @classmethod
+    def from_blocks(cls, rows, cols, blocks, shape_xyz, g: int, c0: float, *,
+                    device: torch.device, dtype: torch.dtype, rtol: float = 1e-5):
+        """From a block COO (rows, cols (nnzb,), blocks (nnzb, m, m)), g
+        consecutive block rows a site, in float64 on the host: only the
+        tables reach the device. F is the most couplings of any sub-row (the
+        union over the sites). None where a wrap couples the grid (a periodic
+        mesh) or where an off-diagonal sub-block deviates from
+        s·(A − |A|)(n̂)/2 by more than rtol × the largest entry of its slot
+        (the test of WaveNormalStencilOperator.from_varying, on the whole
+        block). K7's own limits are the wrapper's to check, at the launch."""
+        check_real_dtype(dtype)
+        blocks = np.asarray(blocks, dtype=np.float64)
+        m, g = blocks.shape[-1], int(g)
+        dim = m - 1
+        shape_zyx, site_r, sub_r, sub_c, key = _site_couplings(rows, cols, shape_xyz, g)
+        N = int(np.prod(shape_zyx))
+        nonzero = blocks.reshape(len(blocks), -1).any(axis=1)
+        _, ny, nx = shape_zyx
+        flat = (key // 9 - 1) * ny * nx + ((key // 3) % 3 - 1) * nx + key % 3 - 1
+        if np.any(nonzero & (site_r + flat != np.asarray(cols, dtype=np.int64) // g)):
+            return None  # a coupling across a wrap: no flat layout
+        on_diag = (key == 13) & (sub_r == sub_c)
+        coupled = nonzero & ~on_diag
+        code = key * g + sub_c  # (offset, sub-column) of a coupling
+        codes = [np.unique(code[coupled & (sub_r == r)]) for r in range(g)]
+        F = max(len(c) for c in codes)
+        slot_offset, slot_col = np.zeros((g, F), np.int64), np.tile(np.arange(g)[:, None], F)
+        for r, cr in enumerate(codes):
+            slot_col[r, :len(cr)] = cr % g
+            slot_offset[r, :len(cr)] = [_flat_offset(_offset_zyx(k), shape_zyx) for k in cr // g]
+
+        e = np.arange(m * m)
+        place = ((sub_r[on_diag] * (m * m))[:, None] + e) * N + site_r[on_diag, None]
+        diag = np.bincount(place.reshape(-1), weights=blocks[on_diag].reshape(-1),
+                           minlength=g * m * m * N).reshape(g, m, m, N)
+        s = np.zeros((g, F, N))
+        nvec = np.zeros((g, F, dim, N))
+        for r, cr in enumerate(codes):
+            sel = coupled & (sub_r == r)
+            slot = np.searchsorted(cr, code[sel])
+            place = ((slot * (m * m))[:, None] + e) * N + site_r[sel, None]
+            C = np.bincount(place.reshape(-1), weights=blocks[sel].reshape(-1),
+                            minlength=len(cr) * m * m * N).reshape(len(cr), m, m, N)
+            C = np.moveaxis(C, 0, 2)  # (m, m, slots, N)
+            sr = -2.0 * C[0, 0] / c0
+            n = 2.0 * C[1:, 0] / np.where(sr != 0, sr, 1.0)
+            err = np.abs(C - _wave_block(sr, n, c0)).max(axis=(0, 1, 3))
+            if np.any(err > rtol * (np.abs(C).max(axis=(0, 1, 3)) + 1e-300)):
+                return None
+            s[r, :len(cr)] = sr
+            nvec[r, :len(cr)] = np.moveaxis(n, 0, 1)
+        return cls(shape_zyx, m, g, c0, slot_offset, slot_col,
+                   tuple(_to(a, device, dtype) for a in (diag, s, nvec)))
+
+    def plain_fm(self, gt: torch.Tensor) -> torch.Tensor:
+        """K7's plain version: gt (M, N) field-major → (M, N), in PyTorch."""
+        diag, s, nvec = self.arrays
+        g, m, N, P = self.g, self.m, gt.shape[-1], self._pad
+        x = gt.reshape(g, m, N)
+        xp = torch.nn.functional.pad(x, (P, P)) if P else x  # zero outside [0, N)
+        v = torch.stack([torch.stack([xp[c, :, P + o:P + o + N]
+                                      for o, c in zip(offs, cols)])
+                         for offs, cols in zip(self.slot_offset, self.slot_col)])  # (g, F, m, N)
+        p, t = v[:, :, 0], (nvec * v[:, :, 1:]).sum(dim=2)
+        half_c0 = 0.5 * self.c0
+        y = (diag * x.unsqueeze(1)).sum(dim=2)  # (g, m, N)
+        y_p = y[:, 0] + (half_c0 * s * (self.c0 * t - p)).sum(dim=1)
+        y_v = y[:, 1:] + ((s * (0.5 * p - half_c0 * t)).unsqueeze(2) * nvec).sum(dim=1)
+        return torch.cat([y_p.unsqueeze(1), y_v], dim=1).reshape(gt.shape)
+
+    def _apply_gt(self, gt: torch.Tensor) -> torch.Tensor:
+        """gt (M, N_sites) field-major → the same shape: K7 on the card, the
+        plain version on the CPU; the device span "port.supercell"."""
+        with device_span("port.supercell", gt.device):
+            return supercell_stencil.apply(self, gt)
+
+    def matvec_fm(self, g: torch.Tensor) -> torch.Tensor:
+        """Field-major apply: g (M, N_sites) → the same shape."""
+        return self._apply_gt(g)
+
+    def matvec_fm_flat(self, x: torch.Tensor) -> torch.Tensor:
+        return self._apply_gt(x.reshape(self.M, -1)).reshape(-1)
+
+    def matvec(self, x: torch.Tensor) -> torch.Tensor:
+        """Cell-major flat apply (site-interleaved rows, as the BSR): one
+        relayout pair around the field-major apply."""
+        return self._apply_gt(x.reshape(-1, self.M).T.contiguous()).T.reshape(-1)
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        return self.matvec(x)

@@ -31,15 +31,16 @@ as CUDA graphs captured from its plain PyTorch code:
   a pinned slot and records an event; the host reads a slot after waiting on
   its event, L iterations behind the device (the lookahead), so the card
   always has work queued. On the CPU the flags are read directly.
-- Kernel launch counts. K1 to K6 count their launches where their
+- Kernel launch counts. K1 to K7 count their launches where their
   wrappers launch them, in Python, which a replay does not reach. A graph
   records how many launches of each it captured (the capture itself launches
   nothing and counts nothing), and every replay adds them. An iteration that
   a lookahead queued past the stop runs masked and launches its kernels all
   the same: they are counted, and `STATS.masked_launches` holds them apart.
-  The V-cycle's level visits (`STATS.vcycle_levels_fused`, `_plain`) and
-  the point-block Jacobi applies (`STATS.block_jacobi_fused`, `_plain`) are
-  counted in Python too, and a graph replays them the same way.
+  The V-cycle's level visits (`STATS.vcycle_levels_fused`, `_plain`), the
+  point-block Jacobi applies (`STATS.block_jacobi_fused`, `_plain`) and the
+  supercell SpMV's applies (`STATS.supercell_fused`, `_plain`) are counted
+  in Python too, and a graph replays them the same way.
 - `STATS` sums over all solves and steps: iterations kept and masked, the
   masked iterations' launches, graph replays, eager calls, host waits and
   the seconds they blocked, captures and the seconds they took; its
@@ -79,28 +80,30 @@ def _kernel_classes() -> tuple:
     from circulantpreconditioner_tpu_torch.ops.complex_matmul import ComplexMatmulKernel
     from circulantpreconditioner_tpu_torch.ops.fused_circulant import FusedCirculantSolver
     from circulantpreconditioner_tpu_torch.ops.plane_stencil import PlaneStencilMatvec
+    from circulantpreconditioner_tpu_torch.ops.supercell_stencil import SupercellStencilKernel
     from circulantpreconditioner_tpu_torch.ops.tier_matmul import TierMatmulKernel
     from circulantpreconditioner_tpu_torch.ops.vcycle_sweep import VCycleSweepKernel
 
     return (FusedCirculantSolver, PlaneStencilMatvec, ComplexMatmulKernel, TierMatmulKernel,
-            VCycleSweepKernel, BlockJacobiKernel)
+            VCycleSweepKernel, BlockJacobiKernel, SupercellStencilKernel)
 
 
 def kernel_launches() -> tuple[int, ...]:
-    """The launch counters of K1 to K6, in that order."""
+    """The launch counters of K1 to K7, in that order."""
     return tuple(cls.launches for cls in _kernel_classes())
 
 
 def credit(counts: tuple[int, ...], sign: int = 1) -> None:
-    """Add (sign = 1) or take back (sign = −1) launches of K1 to K6."""
+    """Add (sign = 1) or take back (sign = −1) launches of K1 to K7."""
     for cls, n in zip(_kernel_classes(), counts):
         cls.launches += sign * n
 
 
 # the STATS counters of the paths a step function took in Python (K5's level
-# visits, K6's applies, and those their plain versions ran): replayed with it
+# visits, K6's and K7's applies, and those their plain versions ran):
+# replayed with it
 _PATHS = ("vcycle_levels_fused", "vcycle_levels_plain", "block_jacobi_fused",
-          "block_jacobi_plain")
+          "block_jacobi_plain", "supercell_fused", "supercell_plain")
 
 
 def _path_counts() -> tuple[int, ...]:
@@ -121,7 +124,7 @@ class SolveStats:
     solves: int = 0
     iterations: int = 0  # iterations kept: the JAX while_loops' trips
     masked: int = 0  # iterations run past the stop, masked
-    masked_launches: tuple[int, ...] = (0,) * 6  # K1 to K6 launched by the masked ones
+    masked_launches: tuple[int, ...] = (0,) * 7  # K1 to K7 launched by the masked ones
     replays: int = 0  # graph replays
     eager_calls: int = 0  # step functions run eagerly (on the CPU, uncaptured, warm-ups)
     waits: int = 0  # host waits on a flag event
@@ -132,6 +135,8 @@ class SolveStats:
     vcycle_levels_plain: int = 0  # ... run by the plain PyTorch stages
     block_jacobi_fused: int = 0  # field-major point-block Jacobi applies run by K6
     block_jacobi_plain: int = 0  # ... run by their plain versions (einsum)
+    supercell_fused: int = 0  # supercell SpMV applies run by K7
+    supercell_plain: int = 0  # ... by K7's plain version or the block-sparse stencil
 
     def reset(self) -> None:
         for f in fields(self):
@@ -164,7 +169,7 @@ def _capture_stream(device: torch.device) -> torch.cuda.Stream:
 
 
 class _Graph:
-    """A captured step function: its graph, the K1 to K6 launches and the
+    """A captured step function: its graph, the K1 to K7 launches and the
     path counts (`_PATHS`) it holds, and its device spans' marker nodes,
     enabled while `traced`."""
 
@@ -202,7 +207,7 @@ class GraphSet:
         self._pool = None
 
     def run(self, key: Hashable, fn: Callable[[], None]) -> tuple[int, ...]:
-        """Run the step function `fn`, saved under `key`; returns the K1 to K6
+        """Run the step function `fn`, saved under `key`; returns the K1 to K7
         launches it made, which the counters already hold."""
         if not self.capture:
             before = kernel_launches()

@@ -213,7 +213,7 @@ def test_launch_counters_hold_the_kept_iterations(side):
             expected = (1 + cycles + res.iters) + (res.iters + cycles)
         else:
             expected = (1 + cycles + res.iters) + (2 + cycles + res.iters)
-        assert STATS.masked_launches == (0, 2 * STATS.masked, 0, 0, 0, 0)
+        assert STATS.masked_launches == (0, 2 * STATS.masked, 0, 0, 0, 0, 0)
         if res.converged:  # a stop inside a cycle (maxiter ends one without masked iterations)
             assert STATS.masked >= min(L, 1)
         assert PlaneStencilMatvec.launches == expected + 2 * STATS.masked
@@ -228,7 +228,7 @@ def test_cg_launch_counters_hold_the_kept_iterations():
         STATS.reset()
         res = _solver(make_cg, _counting(At), None, dict(rtol=1e-10, atol=1e-12), L)(
             torch.as_tensor(b))
-        assert STATS.masked == L and STATS.masked_launches == (0, L, 0, 0, 0, 0)
+        assert STATS.masked == L and STATS.masked_launches == (0, L, 0, 0, 0, 0, 0)
         # the initial residual, one A per iteration, masked ones included
         assert PlaneStencilMatvec.launches == 1 + res.iters + STATS.masked
 

@@ -4,7 +4,8 @@ flagship at "high" through it), one GMRES step preconditioned through K1,
 one grid-V-cycle GMRES step on the wave system through K2, the staged DFT solve through K3,
 one dct2lm GMRES step through K2, and the paths with no hand-written kernel
 (ILU(0) and block-Jacobi ILU(0), diffusion, the aggregation V-cycle, the
-supercell SpMV and V-cycle of the tet meshes) on the card against the CPU,
+V-cycle of the tet meshes) on the card against the CPU, K7 (the tet meshes'
+supercell SpMV) against its plain version and its refusals,
 the distributed layer's slab solve on a world of one rank over NCCL, and
 the device-resident solves: K2 counted per graph replay, a capture failure
 raising, and every --pc choice of the implicit drivers solving under
@@ -387,22 +388,77 @@ def _tet_wave(n, device, dtype, cfl=1e3 / 3):
 
 @pytest.mark.gpu
 def test_supercell_spmv_on_card(cuda):
-    """Kershaw-tet 12³: the block-sparse supercell SpMV (field-major) and the
-    dense M = 24 one (cell-major) on the card against the CPU float64 result,
-    to 1e-5 · max|y|."""
-    from circulantpreconditioner_tpu_torch.ops.stencil import SupercellStencilOperator
+    """Kershaw-tet 12³: the supercell normal form's apply, K7 (field-major and
+    cell-major), and the dense M = 24 stencil (cell-major) on the card against
+    the CPU float64 result, to 1e-5 · max|y|; every apply of the model's
+    routes launched K7 once and counted as fused."""
+    from circulantpreconditioner_tpu_torch.ops import supercell_stencil as k7
+    from circulantpreconditioner_tpu_torch.ops.stencil import SupercellNormalOperator
+    from circulantpreconditioner_tpu_torch.utils.graphs import STATS
 
     gpu, cpu = _tet_wave(12, cuda, torch.float32), _tet_wave(12, torch.device("cpu"),
                                                                torch.float64)
-    assert isinstance(gpu.divergence_op_fm().__self__, SupercellStencilOperator)
+    assert isinstance(gpu.divergence_op_fm().__self__, SupercellNormalOperator)
     x = np.random.default_rng(16).standard_normal(gpu.divergence.shape[0])
     g = x.reshape(-1, 24).T.copy()
+    launches = k7.SupercellStencilKernel.launches
+    STATS.reset()
     y_fm = gpu.divergence_op_fm()(torch.as_tensor(g, device=cuda, dtype=torch.float32))
     y_cm = gpu.divergence_op()(torch.as_tensor(x, device=cuda, dtype=torch.float32))
+    y_dense = gpu.divergence_op("varying")(torch.as_tensor(x, device=cuda, dtype=torch.float32))
+    assert k7.SupercellStencilKernel.launches - launches == 2
+    assert (STATS.supercell_fused, STATS.supercell_plain) == (2, 0)
     ref = cpu.divergence.matvec(torch.as_tensor(x)).numpy()
     scale = np.abs(ref).max()
     assert np.abs(y_fm.double().cpu().numpy().T.reshape(-1) - ref).max() <= 1e-5 * scale
     assert np.abs(y_cm.double().cpu().numpy() - ref).max() <= 1e-5 * scale
+    assert np.abs(y_dense.double().cpu().numpy() - ref).max() <= 1e-5 * scale
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.float64, 1e-12)])
+def test_k7_against_its_plain_version(cuda, dtype, tol):
+    """K7 against its plain version (SupercellNormalOperator.plain_fm, run on
+    the card) at Kershaw-tet 12³ and on a lattice of unequal sides (7, 5, 9),
+    to tol · max|y|, in float32 and float64."""
+    from circulantpreconditioner_tpu_torch.mesh import kershaw_tet_mesh
+    from circulantpreconditioner_tpu_torch.models import WaveSystem
+    from circulantpreconditioner_tpu_torch.ops import supercell_stencil as k7
+
+    for n in ((12, 12, 12), (7, 5, 9)):
+        S = WaveSystem(kershaw_tet_mesh(((0.0, 1.0),) * 3, n), cfl=1e3 / 3, device=cuda,
+                       dtype=dtype).supercell_operator
+        g = torch.randn(S.M, S.N, device=cuda, dtype=dtype)
+        y, ref = k7.supercell_stencil_cuda(S, g), S.plain_fm(g)
+        assert (y - ref).abs().max().item() <= tol * ref.abs().max().item()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["dtype", "shape", "device", "contiguity", "table dtype"])
+def test_k7_refuses_what_it_cannot_take(cuda, case):
+    """The wrapper raises, on the card, on a dtype other than float32 and
+    float64 (and tables in another than x's), a shape that is not the
+    operator's, x off the card, a non-contiguous x, a table not int32."""
+    from circulantpreconditioner_tpu_torch.ops import supercell_stencil as k7
+
+    S = _tet_wave(4, cuda, torch.float32).supercell_operator
+    g = torch.randn(S.M, S.N, device=cuda)
+    match = {"dtype": "float32 or float64", "shape": "shape", "device": "CUDA tensors",
+             "contiguity": "contiguous", "table dtype": "expected torch.int32"}[case]
+    if case == "dtype":
+        g = g.half()
+    elif case == "shape":
+        g = g[:, :-1]
+    elif case == "device":
+        g = g.cpu()
+    elif case == "contiguity":
+        g = torch.randn(S.N, S.M, device=cuda).T
+    else:
+        S.table = S.table.long()
+    with pytest.raises(ValueError, match=match):
+        k7.supercell_stencil_cuda(S, g)
+    with pytest.raises(ValueError, match="float64"):  # tables in another dtype than x
+        k7.supercell_stencil_cuda(S, torch.randn(S.M, S.N, device=cuda, dtype=torch.float64))
 
 
 @pytest.mark.gpu

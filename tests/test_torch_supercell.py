@@ -117,7 +117,11 @@ def test_host_decomposition_is_the_dense_ones(dtype):
     assert (St.offsets, St.pair_idx, St.M) == (Sv.offsets, Sv.pair_idx, Sv.M)
     for a, b in zip(St.rows + St.cols + St.coefs, Sv.rows + Sv.cols + Sv.coefs):
         assert a.dtype == b.dtype and torch.equal(a, b)
-    assert wt.supercell_operator.pair_idx == St.pair_idx
+    # the model's operator, the normal form of the same blocks: the same pairs
+    Sn = wt.supercell_operator
+    assert {(0, k, k) for k in range(6)} | {
+        (o, k, c) for k in range(6) for o, c in zip(Sn.slot_offset[k], Sn.slot_col[k])} == {
+        (o, r, c) for o, pairs in zip(St.offsets, St.pair_idx) for r, c in pairs}
     _, wp, _ = _models("wave", n=(3, 2, 3), family="tet_mesh", periodic=True)
     assert ts.SupercellStencilOperator.from_bsr(wp.divergence, wp.mesh.topology_shape, 6) is None
 
@@ -181,8 +185,8 @@ def test_scalar_models_take_the_dense_supercell_stencil(kind):
 
 
 def test_wave_model_supercell_routes():
-    """WaveSystem on a tet mesh: D is the block-sparse supercell stencil in
-    both layouts ('auto'; the dense one stays as 'varying'), and the
+    """WaveSystem on a tet mesh: D is the supercell normal form in both
+    layouts ('auto'; the dense one stays as 'varying'), and the
     field-major implicit matvec on (24, nSites) fields is the JAX package's
     cell-major one after the relayout. The JAX package has no field-major
     implicit matvec there (its GMRES runs cell-major); the port's stepper
@@ -191,9 +195,9 @@ def test_wave_model_supercell_routes():
     assert wt.fm_block == wj.fm_block == 24 and wt.cells_per_site == 6
     assert wt.normal_operator is None
     D = wt.divergence_op()
-    assert isinstance(D.__self__, ts.SupercellStencilOperator)
+    assert isinstance(D.__self__, ts.SupercellNormalOperator)
     assert isinstance(wt.divergence_op("varying").__self__, ts.VaryingStencilOperator)
-    assert isinstance(wt.divergence_op_fm().__self__, ts.SupercellStencilOperator)
+    assert isinstance(wt.divergence_op_fm().__self__, ts.SupercellNormalOperator)
     assert wj.implicit_matvec_fm() is None and wt.implicit_stepper_fm() is not None
     with pytest.raises(ValueError, match="normal-form"):
         wt.divergence_op_fm("normal")

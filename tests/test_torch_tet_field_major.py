@@ -34,7 +34,7 @@ import torch
 from circulantpreconditioner_tpu_torch.drivers import wave_implicit as t_imp
 from circulantpreconditioner_tpu_torch.mesh import kershaw_tet_mesh
 from circulantpreconditioner_tpu_torch.models import WaveSystem, run_time_loop
-from circulantpreconditioner_tpu_torch.ops.stencil import SupercellStencilOperator
+from circulantpreconditioner_tpu_torch.ops.stencil import SupercellNormalOperator
 from circulantpreconditioner_tpu_torch.solvers import preconditioners as pcs
 from portbench.reference.checks import errors, implicit_solutions
 from portbench.reference.control import implicit_tf32
@@ -69,7 +69,7 @@ def test_field_major_matvec_is_the_references_operator(n):
     A, dt = implicit_operator(_config(n, 1e3 / 3), "wall")
     model = _model(n, 1e3 / 3)
     assert dt == pytest.approx(model.dt, rel=1e-13)
-    assert isinstance(model.divergence_op().__self__, SupercellStencilOperator)
+    assert isinstance(model.divergence_op().__self__, SupercellNormalOperator)
     x = np.random.default_rng(sum(n)).standard_normal(A.shape[0])
     g = model.pack_fm(torch.as_tensor(x)).reshape(-1)
     assert g.numel() == 24 * int(np.prod(n))
