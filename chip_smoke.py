@@ -527,10 +527,12 @@ def k2_expected_launches(its: list[int], pc_fine_applies: int, restart: int = 30
     return total
 
 
-def k1_expected_launches(its: list[int], masked: int, restart: int = 30) -> int:
+def k1_expected_launches(its: list[int], masked: int, forced: int = 0,
+                         restart: int = 30) -> int:
     """K1 launches of right-preconditioned GMRES steps with K1 as M: one M
-    per iteration, masked ones included, and one per cycle (the correction)."""
-    return masked + sum(i + -(-i // restart) for i in its)
+    per iteration, masked ones included, and one per cycle (the correction),
+    the `forced` cycles that the true-residual check ran included."""
+    return masked + forced + sum(i + -(-i // restart) for i in its)
 
 
 def uncaptured_steps(make_solver, U0, steps: int = 2):
@@ -1642,7 +1644,7 @@ def precision_tier_phase(dev: torch.device, smi: str) -> dict:
     k4_b = kernel_launches()
     its = [d["extras"][0] for d in res_b.diagnostics]
     conv = [d["extras"][2] for d in res_b.diagnostics]
-    expected = k1_expected_launches(its, snap["masked"])
+    expected = k1_expected_launches(its, snap["masked"], snap["true_restarts"])
     u_ref = u0
     fft_step = model.fft_stepper("fft")
     for _ in range(3):
@@ -1651,7 +1653,8 @@ def precision_tier_phase(dev: torch.device, smi: str) -> dict:
     print(f"[25 main path B] GMRES + the dense collapse at 'high', periodic 100^3: iterations "
           f"{its}, converged {conv}, K4 launches {k4_b['K4']} (expected {expected}: one per "
           f"iteration and cycle, {snap['masked_launches'][3]} of them by {snap['masked']} "
-          f"masked iterations), all launches {k4_b}; max|u - u_fft|/max|u| {dev_b:.3e}",
+          f"masked iterations, {snap['true_restarts']} cycles forced by the true residual), "
+          f"all launches {k4_b}; max|u - u_fft|/max|u| {dev_b:.3e}",
           flush=True)
     check(len(its) == 3 and all(conv) and max(its) <= 3, f"path B at 'high': iterations {its}, "
           f"converged {conv}")
@@ -3283,10 +3286,10 @@ def main() -> int:
               f"K1 launches {launches} ({snap['masked_launches'][0]} of them by "
               f"{snap['masked']} masked iterations)", flush=True)
         check(launches > 0, "main path B never launched K1")
-        check(launches == k1_expected_launches(its, snap["masked"]),
-              f"main path B: {launches} K1 launches, expected "
-              f"{k1_expected_launches(its, snap['masked'])} from the iterations {its} and "
-              f"{snap['masked']} masked")
+        expected = k1_expected_launches(its, snap["masked"], snap["true_restarts"])
+        check(launches == expected, f"main path B: {launches} K1 launches, expected "
+              f"{expected} from the iterations {its}, {snap['masked']} masked and "
+              f"{snap['true_restarts']} cycles that the true residual forced")
         check(len(its) == 3 and all(conv) and max(its) <= 3,
               f"main path B: iterations {its}, converged {conv}")
         # the same 3 steps by the direct cuFFT solve

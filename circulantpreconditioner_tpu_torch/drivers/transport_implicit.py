@@ -61,8 +61,10 @@ def main(argv=None):
     elif args.pc == "circulant":
         # periodic grid: the exact inverse (1 GMRES iteration); wall/Neumann
         # grid: it differs from the operator only on the boundary-face layer
-        # (2 GMRES iterations). make_circulant_solver picks the exact
-        # formulation for the λ pattern (one dense matmul for a = (1,0,0)).
+        # (3 GMRES iterations meet rtol on the estimate; in float32 at "high"
+        # the true residual forces one more cycle: 6 iterations at 100³ on an
+        # H100). make_circulant_solver picks the exact formulation for the λ
+        # pattern (one dense matmul for a = (1,0,0)).
         from circulantpreconditioner_tpu_torch.ops.spectral_collapse import (
             make_circulant_solver,
         )

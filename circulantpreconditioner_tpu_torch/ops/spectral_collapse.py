@@ -20,6 +20,7 @@ from circulantpreconditioner_tpu_torch.ops.circulant import np_eigenvalue_diagon
 from circulantpreconditioner_tpu_torch.ops.dft_matmul import MatmulCirculantSolver, _to
 from circulantpreconditioner_tpu_torch.ops.tier_matmul import tier_matmul
 from circulantpreconditioner_tpu_torch.utils.device import check_precision, check_real_dtype
+from circulantpreconditioner_tpu_torch.utils.profiling import device_span
 
 
 class IdentitySolver:
@@ -40,7 +41,7 @@ class DenseCirculantSolver:
     axis: x = M·b with M = Re(F⁻¹ diag(1/Λ₁d) F) precomputed in float64, at
     the precision tier (`tier_matmul`: one K4 launch per solve at "high" and
     "default" on a CUDA float32 tensor; M is read through its transpose's
-    strides, no copy)."""
+    strides, no copy), inside the device span "port.pc.circulant"."""
 
     def __init__(self, shape_zyx, axis: int, arrays, precision: str = "highest"):
         self.shape_zyx = tuple(int(v) for v in shape_zyx)
@@ -80,7 +81,8 @@ class DenseCirculantSolver:
         was_flat = b.ndim == 1
         g = b.reshape(self.shape_zyx)
         (M,) = self.arrays
-        x = tier_matmul(g, M.T, self.precision, self.axis)
+        with device_span("port.pc.circulant", b.device):
+            x = tier_matmul(g, M.T, self.precision, self.axis)
         return x.reshape(-1) if was_flat else x
 
     def as_preconditioner(self):

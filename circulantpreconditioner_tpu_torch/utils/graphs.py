@@ -127,6 +127,8 @@ class SolveStats:
     masked_launches: tuple[int, ...] = (0,) * 7  # K1 to K7 launched by the masked ones
     replays: int = 0  # graph replays
     eager_calls: int = 0  # step functions run eagerly (on the CPU, uncaptured, warm-ups)
+    true_restarts: int = 0  # GMRES (true_residual) cycles run because ‖b − A x‖ missed
+    # the tolerance that the previous cycle's estimate met
     waits: int = 0  # host waits on a flag event
     wait_seconds: float = 0.0  # host seconds blocked in those waits
     captures: int = 0

@@ -47,7 +47,8 @@ import torch
 
 # the device spans, in the order of their ids on the device
 DEVICE_SPANS = ("port.gmres.apply", "port.op", "port.pc", "port.pc.coarse",
-                "port.gmres.ortho", "port.gmres.cycle", "port.supercell", "port.pc.site")
+                "port.gmres.ortho", "port.gmres.cycle", "port.supercell", "port.pc.site",
+                "port.pc.circulant")
 MAX_DEPTH = 16  # the device stack; deeper spans count their depth only
 _OFF = contextlib.nullcontext()
 

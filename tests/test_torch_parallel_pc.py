@@ -230,3 +230,33 @@ def test_sharded_gmres_circulant2l_matches_jax(world, kershaw8):
     res = make_gmres(lambda x: x + Ah.matvec(x), M, rtol=1e-8, atol=1e-10, maxiter=500,
                      side="right")(bb, bb)
     _same_solve(out["gmres_circulant2l"], res, Ah.unshard_vector)
+
+
+def test_sharded_right_gmres_checks_the_true_residual(world):
+    """GMRES's true-residual check on row-sharded vectors: the transport
+    problem of test_torch_true_residual.py, its preconditioner Jacobi plus a
+    term ‖r‖·e that makes the estimate lie, takes at every P the one-device
+    solve's iterations and forced cycles, and ends with ‖b − A x‖ < tol."""
+    import torch
+
+    from circulantpreconditioner_tpu_torch.mesh import cartesian_mesh as t_cartesian
+    from circulantpreconditioner_tpu_torch.models import TransportEquation
+    from circulantpreconditioner_tpu_torch.solvers import make_gmres as t_gmres
+    from circulantpreconditioner_tpu_torch.utils.graphs import STATS
+
+    P, out = world
+    x, iters, converged, forced, resnorm, true, bnorm = out["gmres_true_residual"]
+    t = TransportEquation(t_cartesian(((-0.5, 0.5),) * 3, (8, 6, 5), periodic=False),
+                          (1.0, 0.5, 0.25), cfl=20.0, device=torch.device("cpu"),
+                          dtype=torch.float64)
+    dinv = 1.0 / (t.divergence.diagonal() + 1.0)
+    b = torch.as_tensor(np.random.default_rng(0).normal(size=t.mesh.n_cells) + 600.0)
+    e = torch.as_tensor(np.random.default_rng(5).random(t.mesh.n_cells))
+    e = e * (1e-3 / torch.linalg.norm(e))
+    STATS.reset()
+    ref = t_gmres(t.implicit_matvec(), lambda r: dinv * r + torch.linalg.norm(r) * e,
+                  rtol=1e-8, atol=0.0, maxiter=500, side="right", true_residual=True)(b)
+    assert converged and true < 1e-8 * bnorm
+    assert resnorm == pytest.approx(true, rel=1e-6)
+    assert (iters, forced) == (ref.iters, STATS.true_restarts) and forced >= 1
+    np.testing.assert_allclose(x, ref.x.numpy(), rtol=0, atol=1e-6 * np.abs(x).max())

@@ -398,6 +398,30 @@ def pc_checks() -> dict:
     b = A.shard_vector(w.initial_state())
     solve("gmres_pbjacobi", lambda v: v + A.matvec(v), M, A, b, rtol=1e-8, atol=1e-10,
           maxiter=500)
+    # the true-residual check (right) across ranks: the upwind transport
+    # problem of test_torch_true_residual.py, M Jacobi plus a term ‖r‖·e
+    # that makes it non-linear, so that the estimate lies
+    from circulantpreconditioner_tpu_torch.models import TransportEquation
+    from circulantpreconditioner_tpu_torch.utils.graphs import STATS
+
+    def gnorm(v):
+        return torch.sqrt(dm.all_reduce(torch.dot(v, v).reshape(1)))[0]
+
+    t = TransportEquation(cartesian_mesh(((-0.5, 0.5),) * 3, (8, 6, 5), periodic=False),
+                          (1.0, 0.5, 0.25), cfl=20.0, **F64)
+    A = HaloELLMatrix(t.divergence, dm)
+    dinv = A.shard_vector(np_(1.0 / (t.divergence.diagonal() + 1.0)))
+    b = A.shard_vector(np.random.default_rng(0).normal(size=t.mesh.n_cells) + 600.0)
+    e = A.shard_vector(np.random.default_rng(5).random(t.mesh.n_cells))
+    e = e * (1e-3 / gnorm(e))
+    forced = STATS.true_restarts
+    res = make_gmres(lambda v: v + A.matvec(v), lambda r: dinv * r + gnorm(r) * e, rtol=1e-8,
+                     atol=0.0, maxiter=500, side="right", allreduce=dm.all_reduce,
+                     true_residual=True)(b)
+    true = gnorm(b - res.x - A.matvec(res.x))
+    out["gmres_true_residual"] = (np_(A.unshard_vector(res.x)), res.iters, res.converged,
+                                  STATS.true_restarts - forced, res.resnorm, float(true),
+                                  float(gnorm(b)))
     # circulant2l on Kershaw 8^3: the projection PC + pbjacobi, right
     coarse = DistributedBlockCirculantPC(km, model.dt, model.c0, dm, Ah.n_padded,
                                          dtype=torch.float64, precision="highest")
